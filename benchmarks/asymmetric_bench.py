@@ -1,6 +1,6 @@
 """End-to-end asymmetric-ranking serving throughput (pipelined).
 
-The asymmetric estimator runs the same int8 MXU kernel as bitplane
+The asymmetric estimator runs the same int8 group-max kernel as bitplane
 Hamming, so its device cost matches the measured Hamming rates; what
 differs is the wire — the query ships its quantised projection
 coordinates (``num_perm`` int8 bytes/query, 8x the 32-byte dense

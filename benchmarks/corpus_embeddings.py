@@ -87,7 +87,7 @@ def main() -> None:
                     "windows. This is how the real-geometry corpus scales "
                     "past the vocabulary size (dense-retrieval shape: "
                     "~1M real passage vectors from a few hundred MB of "
-                    "text) — see PERFORMANCE.md 'Real-embedding recall'.")
+                    "text).")
     ap.add_argument("--ctx-window", type=int, default=64)
     args = ap.parse_args()
 

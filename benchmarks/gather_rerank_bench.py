@@ -1,4 +1,4 @@
-"""Gather vs full rerank engine: device cost vs capacity (VERDICT r2 #1).
+"""Gather vs full rerank engine: device cost vs capacity.
 
 Shows the point of the candidate-gather engine: the full formulation's
 ``(Q, C)`` cosine matmul scales with CAPACITY, the gather formulation's
@@ -40,7 +40,7 @@ def main() -> None:
     ap.add_argument("--engines", default="full,gather",
                     help="comma list; past ~2M slots the full engine cannot "
                     "even compile at Q=1024 (its (Q, C) counts + sims "
-                    "temporaries alone exceed 16 GB HBM at 4M) — run "
+                    "temporaries alone are 8 bytes per query and slot) — run "
                     "'--engines gather' there")
     args = ap.parse_args()
 

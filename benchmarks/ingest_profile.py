@@ -1,4 +1,4 @@
-"""Stage-level profile of the host-streamed ingest path (VERDICT r3 #7).
+"""Stage-level profile of the host-streamed ingest path.
 
 Round 3 measured the streamed build at 164-200k vec/s against a 432k/s
 uncontended host hash — a ~2x gap with no named owner. This profile

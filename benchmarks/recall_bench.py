@@ -246,8 +246,7 @@ def main() -> None:
                     "--n; the last --queries rows are held out as queries "
                     "and the rest are indexed. This bench host has no "
                     "network egress, so real-dataset numbers must be "
-                    "produced by pointing this flag at a local export "
-                    "(see PERFORMANCE.md, 'Real-embedding recall').")
+                    "produced by pointing this flag at a local export.")
     args = ap.parse_args()
 
     import jax

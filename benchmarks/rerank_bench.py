@@ -1,8 +1,8 @@
-"""Top-p rerank benchmark (BASELINE config #2): fused batched get_above_p.
+"""Top-p rerank benchmark: fused batched get_above_p.
 
 Measures batched cosine-reranked top-p throughput against the resident
 payload matrix: one device dispatch per batch computes collision counts,
-cosine similarities (one MXU matmul) and the exact (cosine desc, id asc)
+cosine similarities (one matmul) and the exact (cosine desc, id asc)
 ordering; the host applies the reference's max(1, ceil(p * n)) cutoff.
 
 Usage: python benchmarks/rerank_bench.py [--n 100000] [--dim 768] [--p 0.2]

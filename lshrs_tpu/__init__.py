@@ -1,8 +1,8 @@
-"""lshrs_tpu — TPU-native banded random-projection LSH index & query engine.
+"""lshrs_tpu — accelerator-resident banded random-projection LSH index & query engine.
 
 A brand-new JAX/XLA/Pallas implementation of the capability set of the
 ``lshrs`` library (Redis-backed LSH for approximate nearest-neighbor
-search): batched MXU signature hashing, an HBM-resident signature store
+search): batched matmul signature hashing, a device-resident signature store
 with fused collision-count/top-k query kernels, cosine reranking against a
 device-resident payload, streaming ingestion, band/row auto-tuning,
 persistence, and mesh-sharded scale-out.

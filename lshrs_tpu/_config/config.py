@@ -6,8 +6,9 @@ signatures. It mirrors the observable contract of the reference container
 per band, normalised from any bytes-like input, exposing the sequence
 protocol plus `as_tuple()`.
 
-On TPU the hot path never materialises these objects — signatures live as
-packed ``uint32`` words in HBM (see `lshrs_tpu.storage.device`). This class
+On the device path the hot path never materialises these objects —
+signatures live as packed ``uint32`` words in device memory (see
+`lshrs_tpu.storage.device`). This class
 exists for API parity: single-vector `hash_vector`, bucket-style storage
 backends, and any user code that treats signatures as dictionary keys.
 """

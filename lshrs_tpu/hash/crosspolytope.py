@@ -17,10 +17,10 @@ count (and the same stored key width) as an ``r``-bit hyperplane band — but
 a strictly better collision-probability profile: cross-polytope is
 *asymptotically optimal* for angular LSH (exponent ``rho = 1/(2c^2 - 1)``)
 while hyperplane hashing is not. At equal memory and equal table count the
-candidate sets it produces are measurably better (see PERFORMANCE.md).
+candidate sets it produces are measurably better.
 
-TPU-native realisation
-----------------------
+Device realisation
+------------------
 
 - The rotation is the same pseudo-random FWHT sandwich as the structured
   sign family (`lshrs_tpu.hash.fwht`): ``y = H D3 H D2 H D1 x_pad`` with

@@ -27,7 +27,7 @@ float32 outputs — and therefore the hash bits — are bit-identical on every
 backend.  Addition order is the only degree of freedom in FWHT; fixing it
 makes the transform deterministic across hosts and devices, which is what
 lets one store accept host- and device-hashed queries interchangeably
-(stronger than the Gaussian family, where host sgemm vs device MXU matmul
+(stronger than the Gaussian family, where host sgemm vs device matmul
 round differently and path consistency per store is required).
 """
 

@@ -1,17 +1,17 @@
-"""Banded random-hyperplane LSH hasher, TPU-native.
+"""Banded random-hyperplane LSH hasher, batched for the device.
 
 Capability parity with the reference hasher
 (`/root/reference/lshrs/hash/lsh.py:18-247`): deterministic seeded
 projections, per-band sign signatures packed little-endian, single-vector
 and batch APIs, mutable ``projections`` (for persistence restore).
 
-TPU-first differences:
+Device-first differences:
 
 - All ``num_bands`` projection matrices are one ``(num_perm, dim)`` array
   drawn from a single seeded stream (row-for-row identical to the
   reference's sequence of per-band ``(r, dim)`` draws, since NumPy fills
   C-order from one stream). The device keeps its transpose ``(dim,
-  num_perm)`` so a *batch* of vectors is hashed with a single MXU matmul —
+  num_perm)`` so a *batch* of vectors is hashed with a single matmul —
   the reference's per-vector, per-band GEMV loop
   (`/root/reference/lshrs/hash/lsh.py:199-211`) becomes
   ``(n, dim) @ (dim, num_perm)``.
@@ -170,7 +170,7 @@ class LSHHasher:
         dim: expected input dimensionality.
         words_per_band: uint32 words per band signature, ``ceil(r / 32)``.
         hash_family: ``"gaussian"`` (reference parity: dense seeded
-            hyperplanes, one MXU matmul per batch), ``"structured"``
+            hyperplanes, one matmul per batch), ``"structured"``
             (FWHT pseudo-random rotations, `lshrs_tpu.hash.fwht` — ~13x
             fewer flops per vector, native C host path, and host/device
             bit parity by construction), or ``"learned"`` (data-dependent
@@ -399,7 +399,7 @@ class LSHHasher:
     def hash_batch_words(self, vectors) -> jax.Array:
         """Device path: ``(n, dim)`` -> ``(n, num_bands * W)`` uint32 words.
 
-        One MXU matmul for the whole batch plus an on-device bitpack; this is
+        One matmul for the whole batch plus an on-device bitpack; this is
         what ingestion and querying against the device store use.
         """
         arr = jnp.asarray(vectors, dtype=jnp.float32)

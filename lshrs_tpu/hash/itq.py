@@ -2,7 +2,7 @@
 
 The reference's hash family is fixed at seeded random hyperplanes
 (`/root/reference/lshrs/hash/lsh.py:93-94`) — data-oblivious by design.
-With the payload resident in HBM this framework can do better: fit the
+With the payload resident on the device this framework can do better: fit the
 hyperplanes to the indexed distribution so the binary codes preserve
 more of the neighborhood structure per bit, then rebuild every stored
 signature in place (`LSHRS.retrain`, a few hash-matmul dispatches —
@@ -41,7 +41,7 @@ is centered:
    counted in the returned info).
 
 The result plugs in as ``hash_family="learned"``: identical matmul +
-bitpack machinery as the gaussian family (one MXU matmul per batch,
+bitpack machinery as the gaussian family (one matmul per batch,
 multi-probe margins, asymmetric coordinates, the fused build program),
 only the matrix differs. Collision counting, tie-breaking and rerank
 exactness are unaffected — the hash family changes *which* vectors

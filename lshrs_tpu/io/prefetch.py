@@ -5,7 +5,7 @@ ingestion: a daemon thread pulls ``(indices, vectors)`` batches from the
 underlying iterator into a bounded queue while the consumer hashes and
 appends the previous batch on device. The reference streams strictly
 serially (loader -> index -> loader, `/root/reference/lshrs/core/main.py:383`);
-this pipeline keeps the MXU busy during IO stalls.
+this pipeline keeps the device busy during IO stalls.
 
 Exceptions raised by the source iterator are re-raised in the consumer at
 the point of the failed batch, preserving the reference's error surface.

@@ -15,11 +15,11 @@ same idea PQ/ADC systems use; for Gaussian hyperplanes
 self-normalising estimate ``s / sum_j |c_j|`` converges to
 ``cos(theta)`` without any distribution constants).
 
-TPU formulation — the same int8 MXU kernel as symmetric Hamming:
+Device formulation — the same int8 group-max scan as symmetric Hamming:
 
 - quantise the query coordinates per-row to int8 (``round(c * 127 /
   max|c_row|)``) — store bitplanes are already int8 ±1, so the scan's
-  dot is the identical ``(Q, P) @ (P, CH)`` int8 MXU matmul;
+  dot is the identical ``(Q, P) @ (P, CH)`` int8 matmul;
 - selection keys pack ``((dots + offset) >> shift) * scale + tie`` with
   ``offset = P * qmax`` and ``shift`` adapted by :func:`asymmetric_shift`
   so the key fits a positive int32 (the group-max machinery's format).
@@ -46,11 +46,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lshrs_tpu.ops.pallas_scan import (
-    _hamming_key_bias,
-    hamming_group_max_keys,
-    key_scale,
-)
+from lshrs_tpu.ops.pallas_scan import dot_group_max_keys, key_scale
 from lshrs_tpu.ops.scan import _hierarchical_top_groups, merge_topk_pools
 
 __all__ = [
@@ -188,12 +184,10 @@ def refine_dots_from_words(
 
     ``dots = sum_j c_j * (2 b_j - 1) = 2 * sum_j c_j b_j - sum_j c_j``, so
     the exact int dot reconstructs from the packed signature bits with one
-    select-accumulate per coordinate — all fused VPU work on the already-
-    gathered ``(Q, m, nw, group)`` block. This keeps the refine stage on
-    the 4-byte-per-word grouped refine table instead of gathering full
-    ``num_perm``-byte bitplane rows (measured 386 -> 81 ms per 16k queries
-    at 1M slots on v5e; the bitplane gather moved 3.5x the bytes in 64x
-    the rows).
+    select-accumulate per coordinate — all fused elementwise work on the
+    already-gathered ``(Q, m, nw, group)`` block. This keeps the refine
+    stage on the 4-byte-per-word grouped refine table instead of gathering
+    full ``num_perm``-byte bitplane rows (3.5x the bytes in 64x the rows).
 
     Args:
         cwords: ``(Q, m, nw, group)`` uint32 gathered signature words —
@@ -240,14 +234,12 @@ def asymmetric_topk_core(
     group: int,
     shift: int,
     qmax: int = QMAX,
-    use_pallas: bool = False,
-    q_tile: int = 128,
-    interpret: bool = False,
+    kernel: str | None = None,
     sig_rows: jax.Array | None = None,
     narrow_r: int = 0,
     num_bands: int | None = None,
 ) -> tuple[jax.Array, jax.Array]:
-    """Top-k by (asymmetric dot desc, id asc), grouped MXU path.
+    """Top-k by (asymmetric dot desc, id asc), grouped matmul path.
 
     Args:
         planes: ``(C, P)`` int8 ±1 store bitplanes (dead slots arbitrary).
@@ -256,15 +248,13 @@ def asymmetric_topk_core(
             (:func:`quantize_coords_np` / `_jax`).
         shift: key right-shift from :func:`asymmetric_shift`.
         sig_rows: optional grouped word-major refine table
-            (`lshrs_tpu.ops.scan.build_grouped_refine_rows`, strided iff
-            ``use_pallas``); the refine stage then gathers one wide row
-            per candidate GROUP and reconstructs exact dots from the
-            packed bits (:func:`refine_dots_from_words`) instead of
-            gathering full bitplane rows — the bitplane gather dominated
-            the whole query at 1M slots (measured 386 ms vs 72 ms for
-            the equivalent Hamming dispatch per 16k queries). Requires
-            ``num_bands`` (and ``narrow_r`` if the table is
-            narrow-packed).
+            (`lshrs_tpu.ops.scan.build_grouped_refine_rows`); the refine
+            stage then gathers one wide row per candidate GROUP and
+            reconstructs exact dots from the packed bits
+            (:func:`refine_dots_from_words`) instead of gathering full
+            bitplane rows. Requires ``num_bands`` (and ``narrow_r`` if
+            the table is narrow-packed).
+        kernel: group-max route (`lshrs_tpu.ops.pallas_scan.KERNEL_MODES`).
         num_bands: banding of ``sig_rows``'s word layout.
 
     Returns:
@@ -275,41 +265,17 @@ def asymmetric_topk_core(
     q = qcoords.shape[0]
     scale = key_scale(c)
     offset = p * qmax
-    bias = _hamming_key_bias(tie, scale=scale, maxscaled=(2 * offset) >> shift)
 
-    if use_pallas:
-        q_pad = -(-q // q_tile) * q_tile
-        qc = jnp.pad(qcoords, ((0, q_pad - q), (0, 0))) if q_pad != q else qcoords
-        gmax = hamming_group_max_keys(
-            planes, tie, qc,
-            group=group, chunk=chunk, q_tile=q_tile, scale=scale,
-            interpret=interpret, offset=offset, shift=shift,
-        )[:q]
-    else:
-        nchunks = c // chunk
-        planes_c = planes.reshape(nchunks, chunk, p)
-        bias_c = bias.reshape(nchunks, chunk)
-
-        def body(carry, xs):
-            chunk_planes, chunk_bias = xs
-            dots = jax.lax.dot_general(
-                qcoords,
-                chunk_planes,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )  # (Q, chunk) — MXU int8 matmul
-            key = ((dots + offset) >> shift) * scale + chunk_bias[None, :]
-            return carry, key.reshape(q, chunk // group, group).max(axis=-1)
-
-        _, gmax = jax.lax.scan(body, 0, (planes_c, bias_c))
-        gmax = jnp.moveaxis(gmax, 0, 1).reshape(q, c // group)
+    gmax = dot_group_max_keys(
+        planes, tie, qcoords,
+        group=group, chunk=chunk, scale=scale, offset=offset, shift=shift,
+        kernel=kernel,
+    )
 
     # -- selection + exact refine ------------------------------------------
     ng = c // group
     m = min(k, ng)
-    top_groups = _hierarchical_top_groups(
-        gmax, m=m, ngc=chunk // group if use_pallas else None
-    )
+    top_groups = _hierarchical_top_groups(gmax, m=m)
     mg = m * group
     # The word-row refine unrolls one select-accumulate per coordinate;
     # past a few thousand bits the unroll dominates compile time, so very
@@ -337,20 +303,9 @@ def asymmetric_topk_core(
         cand_ids = cand_ids.reshape(q, mg)
         return _exact_pool_order(dots, cand_ids, cand_tie >= 0, k, offset)
 
-    if use_pallas:
-        # Pallas grouping is strided within each chunk (see pallas_scan).
-        ngc = chunk // group
-        ci = top_groups // ngc
-        j = top_groups % ngc
-        slots = (
-            ci[..., None] * chunk
-            + j[..., None]
-            + jnp.arange(group)[None, None, :] * ngc
-        ).reshape(q, m * group)
-    else:
-        slots = (
-            top_groups[..., None] * group + jnp.arange(group)[None, None, :]
-        ).reshape(q, m * group)
+    slots = (
+        top_groups[..., None] * group + jnp.arange(group)[None, None, :]
+    ).reshape(q, m * group)
 
     cand_planes = jnp.take(planes, slots.reshape(-1), axis=0).reshape(
         q, m * group, p
@@ -426,8 +381,8 @@ def asymmetric_topk_chunked_core(
 asymmetric_topk = partial(
     jax.jit,
     static_argnames=(
-        "k", "chunk", "group", "shift", "qmax", "use_pallas", "q_tile",
-        "interpret", "narrow_r", "num_bands",
+        "k", "chunk", "group", "shift", "qmax", "kernel", "narrow_r",
+        "num_bands",
     ),
 )(asymmetric_topk_core)
 asymmetric_topk_chunked = partial(

@@ -1,8 +1,8 @@
 """Sign-bitpack: turn projected batches into packed per-band signature words.
 
 The reference hashes one vector at a time with per-band GEMVs and
-``np.packbits`` (`/root/reference/lshrs/hash/lsh.py:171-211`). On TPU the
-whole batch is hashed with one MXU matmul ``(n, dim) @ (dim, num_perm)``;
+``np.packbits`` (`/root/reference/lshrs/hash/lsh.py:171-211`). On the
+device the whole batch is hashed with one matmul ``(n, dim) @ (dim, num_perm)``;
 this module handles the second half — thresholding at zero and packing the
 resulting bits into little-endian ``uint32`` words, ``words_per_band =
 ceil(rows_per_band / 32)`` per band, so signatures can be compared with a
@@ -50,8 +50,7 @@ def narrow_refine_r(rows_per_band: int) -> int:
     ``rows_per_band < 32``; the refine stage is gather-bandwidth-bound, so
     its table packs several bands per word when they fit evenly
     (``32 % rows_per_band == 0``) — at the flagship shape (r=16) that
-    halves refine-gather traffic, worth ~22 ms per 16k-query batch at
-    131k slots (measured on v5e; see PERFORMANCE.md). Returns
+    halves refine-gather traffic. Returns
     ``rows_per_band`` when the narrow packing applies, else 0.
     """
     if 0 < rows_per_band < 32 and 32 % rows_per_band == 0:

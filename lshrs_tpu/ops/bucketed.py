@@ -1,6 +1,6 @@
 """Sub-linear bucketed query engine: sorted band keys + binary search.
 
-This is the TPU-native realization of the reference's Redis bucket tables
+This is the device realization of the reference's Redis bucket tables
 (`(band, signature) -> set of ids`, `/root/reference/lshrs/storage/redis.py:40`).
 Open-addressing hash tables need atomics and data-dependent probing — both
 hostile to XLA — so buckets are materialised instead as *per-band sorted
@@ -12,7 +12,7 @@ key arrays*:
 
 A query then runs entirely with static shapes:
 
-    1. `searchsorted` per band (vectorised binary search over ICI-free,
+    1. `searchsorted` per band (vectorised binary search over collective-free,
        shard-local data) -> start of the matching key run,
     2. take a fixed window of ``bucket_cap`` slots per band (runs longer
        than the window are truncated and *counted* — surfaced as an

@@ -1,14 +1,14 @@
-"""Hamming-distance ranking over full signatures — the MXU query mode.
+"""Hamming-distance ranking over full signatures — the matmul query mode.
 
 Band-collision counting (the reference's only ranking signal) quantises
 each band to hit/miss and discards near-miss information. This mode ranks
 candidates by the Hamming distance between *entire* ``num_perm``-bit
 signatures — the classic SimHash angular estimator
 (``theta ~ pi * hamming / num_perm``) — which uses every bit of the hash
-budget and maps perfectly onto the MXU:
+budget and maps onto int8 matrix products:
 
     signatures as +-1 int8 bitplanes:  (C, num_perm)
-    dots = qbits @ planes.T            int8 MXU matmuls, dot = P - 2*hamming
+    dots = qbits @ planes.T            int8 matmuls, dot = P - 2*hamming
     select by (dot desc, id asc)       packed keys + contiguous group-max,
                                        top-k groups, popcount-exact refine
 
@@ -21,7 +21,7 @@ than re-reading bitplanes).
 
 This is an extension beyond reference parity (`query_hamming` on `LSHRS`):
 it typically dominates collision counting for recall at equal memory while
-running at matmul throughput instead of VPU compare throughput.
+running at matmul throughput instead of elementwise-compare throughput.
 """
 
 from __future__ import annotations
@@ -31,16 +31,11 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from lshrs_tpu.ops.pallas_scan import (
-    hamming_group_max_keys,
-    hamming_packed_group_max_keys,
-    key_scale,
-)
+from lshrs_tpu.ops.pallas_scan import dot_group_max_keys, key_scale
 from lshrs_tpu.ops.scan import merge_topk_pools, topk_wide, topk_wide_2key
 
 __all__ = [
     "cascade_coarse_scale",
-    "hamming_q_tile",
     "unpack_bitplanes",
     "hamming_topk",
     "hamming_topk_cascade",
@@ -77,28 +72,6 @@ def cascade_coarse_scale(p_pre: int, capacity: int) -> tuple[int, int]:
     return scale >> tie_shift, tie_shift
 
 
-def hamming_q_tile(q: int, chunk: int, *, packed: bool = False) -> int:
-    """Widest safe query tile for the Hamming kernels at this chunk size.
-
-    The PACKED kernel's explicit popcount-accumulation chain holds
-    several (q_tile, chunk) int32 intermediates on Mosaic's 16 MB scoped
-    VMEM stack — q_tile=512 at chunk=8192 OOMs ("exceeded scoped vmem
-    limit", observed on v5e at 1M slots, group=64) — so its tile shrinks
-    as the chunk grows (key intermediate capped at ~4 MB). The bitplane
-    (MXU) kernel schedules its dot through the MXU and runs 512 x 8192
-    within budget (the round-2 1M numbers were measured exactly there);
-    it keeps the wide tile, which is ~12% faster than 128.
-    """
-    tile = 512
-    if packed:
-        cap = max(128, (1 << 22) // (4 * chunk))
-        tile = min(512, cap)
-        while tile & (tile - 1):  # clamp to a power of two
-            tile &= tile - 1
-    q_pow2 = 1 << max(3, (max(q, 1) - 1).bit_length())
-    return min(tile, max(8, q_pow2))
-
-
 @partial(jax.jit, static_argnames=("num_bands", "rows_per_band"))
 def unpack_bitplanes(
     words: jax.Array, *, num_bands: int, rows_per_band: int
@@ -131,77 +104,42 @@ def hamming_topk_core(
     k: int,
     chunk: int,
     group: int,
-    use_pallas: bool = False,
-    q_tile: int = 128,
-    interpret: bool = False,
+    kernel: str | None = None,
     sig_rows: jax.Array | None = None,
     narrow_r: int = 0,
 ) -> tuple[jax.Array, jax.Array]:
-    """Exact top-k by (hamming asc, id asc), grouped MXU path.
+    """Exact top-k by (hamming asc, id asc), grouped matmul path.
 
     Args:
         planes: ``(C, P)`` int8 store bitplanes (dead slots arbitrary).
         sig_t: ``(BW, C)`` uint32 packed store (for the refine stage).
         ids / tie: slot ids (-1 dead) and global tie keys.
         qbits / qwords: ``(Q, P)`` int8 and ``(Q, BW)`` uint32 queries.
-        chunk / group: scan tile and group width (group | chunk | C).
+        chunk / group: XLA scan tile and group width (group | chunk | C).
+        kernel: group-max route (`lshrs_tpu.ops.pallas_scan.KERNEL_MODES`).
         sig_rows: optional ``(C // group, group * (BW + 2))`` GROUPED
-            refine table (`lshrs_tpu.ops.scan.build_grouped_refine_rows`,
-            ``strided_chunk=chunk`` iff ``use_pallas``); refinement then
-            gathers one wide row per candidate GROUP instead of per-slot
-            rows (8x faster at 1M slots).
+            refine table (`lshrs_tpu.ops.scan.build_grouped_refine_rows`);
+            refinement then gathers one wide row per candidate GROUP
+            instead of per-slot rows.
 
     Returns:
         ``(hamming (Q, k), out_ids (Q, k))``; empty tail entries carry
         id -1 and hamming P+1.
     """
     c, p = planes.shape
-    q = qbits.shape[0]
-    scale = key_scale(c)
-    nchunks = c // chunk
-
-    planes_c = planes.reshape(nchunks, chunk, p)
-    ids_c = ids.reshape(nchunks, chunk)
-    tie_c = tie.reshape(nchunks, chunk)
-
-    def body(carry, xs):
-        chunk_planes, chunk_ids, chunk_tie = xs
-        dots = jax.lax.dot_general(
-            qbits,
-            chunk_planes,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )  # (Q, chunk) — MXU int8 matmul
-        # scaled similarity in [1, P+1] for alive slots, 0 for dead; +1
-        # keeps the worst alive slot above every dead slot.
-        alive = (chunk_ids >= 0)[None, :]
-        scaled = jnp.where(alive, (dots + p) // 2 + 1, 0)
-        key = scaled * scale + jnp.maximum(chunk_tie, 0)[None, :]
-        gmax = key.reshape(q, chunk // group, group).max(axis=-1)
-        return carry, gmax
-
-    if use_pallas:
-        q_pad = -(-q // q_tile) * q_tile
-        qb = jnp.pad(qbits, ((0, q_pad - q), (0, 0))) if q_pad != q else qbits
-        gmax = hamming_group_max_keys(
-            planes, tie, qb,
-            group=group, chunk=chunk, q_tile=q_tile, scale=scale,
-            interpret=interpret,
-        )[:q]
-    else:
-        _, gmax = jax.lax.scan(body, 0, (planes_c, ids_c, tie_c))  # (nc, Q, CH/G)
-        gmax = jnp.moveaxis(gmax, 0, 1).reshape(q, c // group)
-
+    gmax = dot_group_max_keys(
+        planes, tie, qbits,
+        group=group, chunk=chunk, scale=key_scale(c), kernel=kernel,
+    )
     return _select_refine(
         gmax, sig_t, ids, tie, qwords,
-        p=p, k=k, chunk=chunk, group=group, strided=use_pallas,
-        sig_rows=sig_rows, narrow_r=narrow_r,
+        p=p, k=k, group=group, sig_rows=sig_rows, narrow_r=narrow_r,
     )
 
 
 def _select_refine(
-    gmax, sig_t, ids, tie, qwords, *, p, k, chunk, group, strided, sig_rows,
-    narrow_r=0, m_groups=None,
+    gmax, sig_t, ids, tie, qwords, *, p, k, group, sig_rows, narrow_r=0,
+    m_groups=None,
 ):
     """Shared Hamming selection tail: top-k groups by max (hierarchical),
     popcount-exact refine from packed words, exact (hamming, id) order.
@@ -227,14 +165,11 @@ def _select_refine(
     m = min(k if m_groups is None else max(k, m_groups), ng)
     if m_groups is not None:
         # Deep refine pool (the cascade): the pool is heuristic — refine
-        # re-ranks it with true keys — so use the TPU's hardware partial
-        # reduce instead of exact selection (which cost 89% of the whole
-        # cascade batch at m=128; see _pool_top_groups).
+        # re-ranks it with true keys — so it need not be exact (see
+        # _pool_top_groups).
         top_groups = _pool_top_groups(gmax, m=m)
     else:
-        top_groups = _hierarchical_top_groups(
-            gmax, m=m, ngc=chunk // group if strided else None
-        )
+        top_groups = _hierarchical_top_groups(gmax, m=m)
     # Refine from packed words: hamming = sum popcount(xor) over the words.
     bw = sig_t.shape[0]
     mg = m * group
@@ -265,20 +200,9 @@ def _select_refine(
         cand_tie = cand_tie.reshape(q, mg)
         cand_ids = cand_ids.reshape(q, mg)
     else:
-        if strided:
-            # Pallas grouping is strided within each chunk (see pallas_scan).
-            ngc = chunk // group
-            ci = top_groups // ngc
-            j = top_groups % ngc
-            slots = (
-                ci[..., None] * chunk
-                + j[..., None]
-                + jnp.arange(group)[None, None, :] * ngc
-            ).reshape(q, m * group)
-        else:
-            slots = (
-                top_groups[..., None] * group + jnp.arange(group)[None, None, :]
-            ).reshape(q, m * group)
+        slots = (
+            top_groups[..., None] * group + jnp.arange(group)[None, None, :]
+        ).reshape(q, m * group)
         cand_words = jnp.take(sig_t, slots.reshape(-1), axis=1).reshape(bw, q, mg)
         hamming = None
         for wi in range(bw):
@@ -328,21 +252,17 @@ def hamming_topk_cascade_core(
     refine_groups: int,
     chunk: int,
     group: int,
-    use_pallas: bool = False,
-    q_tile: int = 128,
-    interpret: bool = False,
+    kernel: str | None = None,
     sig_rows: jax.Array | None = None,
     narrow_r: int = 0,
 ) -> tuple[jax.Array, jax.Array]:
     """Two-pass refinement-cascade Hamming top-k (the >=4M-slot engine).
 
-    A full ``num_perm``-bit scan is MXU-bound at large capacity — at
-    12.5M slots x 256 bits the int8 dot alone caps ~61k QPS/chip at 100%
-    MXU peak, so no tuning of the exhaustive formulation can hold the
-    100k QPS/chip bar there (see PERFORMANCE.md "QPS vs capacity").
-    The cascade scans a PREFIX of the bitplanes (pass 1: group-max keys
-    over ``cb = planes_prefix.shape[1]`` bits — ``cb/num_perm`` of the
-    MXU work), selects the top ``refine_groups`` groups per query, and
+    A full ``num_perm``-bit scan is matmul-bound at large capacity: its
+    int8 dot grows as ``Q * C * num_perm``. The cascade scans a PREFIX of
+    the bitplanes (pass 1: group-max keys over ``cb =
+    planes_prefix.shape[1]`` bits — ``cb/num_perm`` of the matmul work),
+    selects the top ``refine_groups`` groups per query, and
     re-ranks every slot in those groups by the FULL ``num_perm``-bit
     popcount from the packed words (pass 2, the existing refine stage).
 
@@ -350,12 +270,11 @@ def hamming_topk_cascade_core(
     the refined pool* (``refine_groups * group`` slots). Unlike the
     single-pass engines it is NOT provably equal to the full-width
     ranking — the prefix pass can exclude a true top-k slot — so the
-    cascade is an explicit opt-in (`DeviceStore(hamming_cascade=...)`)
-    with measured agreement/recall tables in PERFORMANCE.md. Because the
-    prefix is itself a valid SimHash (the first ``cb`` hyperplanes), a
-    miss requires a slot to rank far worse on ``cb`` bits than on
-    ``num_perm`` — overwhelmingly unlikely for near neighbours and, at
-    ``refine_groups`` deep pools, measured rare even for ties.
+    cascade is an explicit opt-in (`DeviceStore(hamming_cascade=...)`).
+    Because the prefix is itself a valid SimHash (the first ``cb``
+    hyperplanes), a miss requires a slot to rank far worse on ``cb`` bits
+    than on ``num_perm`` — unlikely for near neighbours; ``chip_smoke.py``
+    checks planted recall at 4M slots.
 
     The coarse key packs into int32 at ANY capacity: when
     ``(cb + 2) * key_scale(C)`` would overflow, the coarse pass right-
@@ -366,58 +285,25 @@ def hamming_topk_cascade_core(
     stays exact-within-pool. This is what re-opens the grouped fast path
     above 4M for any prefix width (e.g. cb=128 at 16M slots).
     """
-    c, p_pre = planes_prefix.shape
-    q = qbits_prefix.shape[0]
-    scale, tie_shift = cascade_coarse_scale(p_pre, c)
+    c = planes_prefix.shape[0]
+    scale, tie_shift = cascade_coarse_scale(planes_prefix.shape[1], c)
     tie_coarse = jnp.where(tie >= 0, tie >> tie_shift, tie) if tie_shift else tie
-    nchunks = c // chunk
-
-    if use_pallas:
-        q_pad = -(-q // q_tile) * q_tile
-        qb = (
-            jnp.pad(qbits_prefix, ((0, q_pad - q), (0, 0)))
-            if q_pad != q
-            else qbits_prefix
-        )
-        gmax = hamming_group_max_keys(
-            planes_prefix, tie_coarse, qb,
-            group=group, chunk=chunk, q_tile=q_tile, scale=scale,
-            interpret=interpret,
-        )[:q]
-    else:
-        planes_c = planes_prefix.reshape(nchunks, chunk, p_pre)
-        ids_c = ids.reshape(nchunks, chunk)
-        tie_c = tie_coarse.reshape(nchunks, chunk)
-
-        def body(carry, xs):
-            chunk_planes, chunk_ids, chunk_tie = xs
-            dots = jax.lax.dot_general(
-                qbits_prefix,
-                chunk_planes,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            alive = (chunk_ids >= 0)[None, :]
-            scaled = jnp.where(alive, (dots + p_pre) // 2 + 1, 0)
-            key = scaled * scale + jnp.maximum(chunk_tie, 0)[None, :]
-            gmax = key.reshape(q, chunk // group, group).max(axis=-1)
-            return carry, gmax
-
-        _, gmax = jax.lax.scan(body, 0, (planes_c, ids_c, tie_c))
-        gmax = jnp.moveaxis(gmax, 0, 1).reshape(q, c // group)
-
+    gmax = dot_group_max_keys(
+        planes_prefix, tie_coarse, qbits_prefix,
+        group=group, chunk=chunk, scale=scale, kernel=kernel,
+    )
     return _select_refine(
         gmax, sig_t, ids, tie, qwords,
-        p=num_perm, k=k, chunk=chunk, group=group, strided=use_pallas,
-        sig_rows=sig_rows, narrow_r=narrow_r, m_groups=refine_groups,
+        p=num_perm, k=k, group=group, sig_rows=sig_rows, narrow_r=narrow_r,
+        m_groups=refine_groups,
     )
 
 
 hamming_topk_cascade = partial(
     jax.jit,
     static_argnames=(
-        "num_perm", "k", "refine_groups", "chunk", "group", "use_pallas",
-        "q_tile", "interpret", "narrow_r",
+        "num_perm", "k", "refine_groups", "chunk", "group", "kernel",
+        "narrow_r",
     ),
 )(hamming_topk_cascade_core)
 
@@ -432,9 +318,6 @@ def hamming_topk_packed_core(
     k: int,
     chunk: int,
     group: int,
-    use_pallas: bool = False,
-    q_tile: int = 128,
-    interpret: bool = False,
     sig_rows: jax.Array | None = None,
     narrow_r: int = 0,
 ) -> tuple[jax.Array, jax.Array]:
@@ -442,47 +325,39 @@ def hamming_topk_packed_core(
 
     Zero memory overhead vs collision mode: distances come from
     XOR + popcount over the same ``(BW, C)`` packed store the collision
-    scan uses (VPU-rate, vs the bitplane formulation's MXU-rate at
-    ``num_perm`` bytes/slot extra HBM). Same results, bit-identical.
+    scan uses, vs the bitplane formulation's ``num_perm`` bytes/slot of
+    extra device memory. Same results, bit-identical. XLA fuses the
+    XOR/popcount/add chain into the group-max reduction; a Triton kernel
+    of the same chain measured 2.7x slower end to end on an H100 (PERF.md).
     """
     bw, c = sig_t.shape
     q = qwords.shape[0]
     scale = key_scale(c)
     p = num_perm
 
-    if use_pallas:
-        q_pad = -(-q // q_tile) * q_tile
-        qw = jnp.pad(qwords, ((0, q_pad - q), (0, 0))) if q_pad != q else qwords
-        gmax = hamming_packed_group_max_keys(
-            sig_t, tie, qw,
-            num_perm=p, group=group, chunk=chunk, q_tile=q_tile, scale=scale,
-            interpret=interpret,
-        )[:q]
-    else:
-        nchunks = c // chunk
-        sig_c = jnp.moveaxis(sig_t.reshape(bw, nchunks, chunk), 1, 0)
-        tie_c = tie.reshape(nchunks, chunk)
+    nchunks = c // chunk
+    sig_c = jnp.moveaxis(sig_t.reshape(bw, nchunks, chunk), 1, 0)
+    tie_c = tie.reshape(nchunks, chunk)
 
-        def body(carry, xs):
-            chunk_sig_t, chunk_tie = xs
-            ham = None
-            for wi in range(bw):
-                pc = jax.lax.population_count(
-                    chunk_sig_t[wi, :][None, :] ^ qwords[:, wi][:, None]
-                )
-                ham = pc.astype(jnp.int32) if ham is None else ham + pc
-            alive = (chunk_tie >= 0).astype(jnp.int32)[None, :]
-            scaled = (p + 1 - ham) * alive
-            key = scaled * scale + jnp.maximum(chunk_tie, 0)[None, :]
-            return carry, key.reshape(q, chunk // group, group).max(axis=-1)
+    def body(carry, xs):
+        chunk_sig_t, chunk_tie = xs
+        ham = None
+        for wi in range(bw):
+            pc = jax.lax.population_count(
+                chunk_sig_t[wi, :][None, :] ^ qwords[:, wi][:, None]
+            )
+            ham = pc.astype(jnp.int32) if ham is None else ham + pc
+        alive = (chunk_tie >= 0).astype(jnp.int32)[None, :]
+        scaled = (p + 1 - ham) * alive
+        key = scaled * scale + jnp.maximum(chunk_tie, 0)[None, :]
+        return carry, key.reshape(q, chunk // group, group).max(axis=-1)
 
-        _, gmax = jax.lax.scan(body, 0, (sig_c, tie_c))
-        gmax = jnp.moveaxis(gmax, 0, 1).reshape(q, c // group)
+    _, gmax = jax.lax.scan(body, 0, (sig_c, tie_c))
+    gmax = jnp.moveaxis(gmax, 0, 1).reshape(q, c // group)
 
     return _select_refine(
         gmax, sig_t, ids, tie, qwords,
-        p=p, k=k, chunk=chunk, group=group, strided=use_pallas,
-        sig_rows=sig_rows, narrow_r=narrow_r,
+        p=p, k=k, group=group, sig_rows=sig_rows, narrow_r=narrow_r,
     )
 
 
@@ -535,8 +410,7 @@ def hamming_topk_packed_chunked_core(
 hamming_topk_packed = partial(
     jax.jit,
     static_argnames=(
-        "num_perm", "k", "chunk", "group", "use_pallas", "q_tile", "interpret",
-        "narrow_r",
+        "num_perm", "k", "chunk", "group", "narrow_r",
     ),
 )(hamming_topk_packed_core)
 hamming_topk_packed_chunked = partial(
@@ -592,7 +466,7 @@ def hamming_topk_chunked_core(
 hamming_topk = partial(
     jax.jit,
     static_argnames=(
-        "k", "chunk", "group", "use_pallas", "q_tile", "interpret", "narrow_r",
+        "k", "chunk", "group", "kernel", "narrow_r",
     ),
 )(hamming_topk_core)
 hamming_topk_chunked = partial(jax.jit, static_argnames=("k", "chunk"))(

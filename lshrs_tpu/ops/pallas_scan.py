@@ -1,23 +1,26 @@
-"""Fused Pallas collision-count + group-max-key kernel (the query hot loop).
+"""Fused score -> selection key -> group-max kernels (Pallas, Triton route).
 
-Motivation: the XLA formulation of collision counting lays out the compare
-as ``(Q, slots, words)`` with the tiny word axis minor, leaving most VPU
-lanes idle (~2% utilisation measured on v5e). This kernel uses the
-transposed store layout ``sig_t: (num_bands * W, C)`` so every compare is a
-full-lane ``(q_tile, chunk)`` op, and fuses three stages that XLA would
-otherwise materialise through HBM:
+Every grouped engine ends its scan the same way: score each (query, slot)
+pair, pack ``(score, tie)`` into one int32 selection key, and keep only
+the maximum key of each contiguous ``group``-slot run. The plain XLA
+formulation of that pipeline writes the ``(Q, chunk)`` score block to
+device memory and reads it back for the key and the group-max; a kernel
+keeps it in registers and writes only the ``(Q, C / group)`` group maxima.
 
-    1. per-band signature equality            (VPU compares, unrolled bands)
-    2. selection-key construction             key = count * S + tie
-    3. 64-slot group-max reduction            -> (Q, C / group) written out
-
-The group maxes feed an *exact* two-stage top-k on the XLA side (see
+The group maxima feed an *exact* two-stage top-k on the XLA side (see
 `lshrs_tpu.ops.scan.collision_topk_grouped`): because every slot's key is
 globally unique (the tie term embeds the slot's id-rank), the top-k groups
-by max are guaranteed to contain every true top-k slot, so refining only
-those groups is exact — the kernel reduces the candidate stream HBM
-traffic by ``group``x (e.g. 134 MB of per-slot keys becomes 2 MB of group
-maxes for C = 131k, Q = 256).
+by max provably contain every true top-k slot, so refining only those
+groups is exact. Groups are contiguous slot runs, so the refine tables
+(`lshrs_tpu.ops.scan.build_grouped_refine_rows`) have one geometry.
+
+Kernels are written for the GPU's block model: a fully parallel grid of
+``(query tile, slot tile)`` blocks with no state carried between blocks,
+power-of-two tiles, and the query-tile axis innermost so that the blocks
+in flight share one store tile and the queries stay in L2. They run
+compiled through Triton on a GPU (``kernel="triton"``) and in Pallas'
+interpreter on the CPU (``kernel="interpret"``, tests only); callers pick
+the route with :func:`scan_kernel`.
 
 Key packing requires ``(num_bands + 1) * S < 2**31`` with
 ``S = next_pow2(C)``; stores that exceed this fall back to the chunked
@@ -31,15 +34,26 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 __all__ = [
-    "group_max_keys",
-    "hamming_group_max_keys",
-    "hamming_packed_group_max_keys",
+    "KERNEL_MODES",
+    "collision_group_max_keys",
+    "dot_group_max_keys",
     "key_scale",
+    "scan_kernel",
     "supports_fast_path",
 ]
+
+# ``kernel=`` values: None runs the plain XLA formulation, "triton" the
+# compiled GPU kernel, "interpret" the same kernel in Pallas' interpreter.
+KERNEL_MODES = (None, "triton", "interpret")
+
+# Tiles: a (64, 256) int32 key block is 128 registers a thread at four
+# warps; the int8 operands of a 256-bit dot are 80 KB of shared memory.
+BLOCK_Q = 64
+BLOCK_C = 256
+_NUM_WARPS = 4
 
 
 def key_scale(capacity: int) -> int:
@@ -52,330 +66,208 @@ def supports_fast_path(num_bands: int, capacity: int) -> bool:
     return (num_bands + 1) * key_scale(capacity) < 2**31
 
 
-def probed_pallas_ok(probes: int, bw: int) -> bool:
-    """Whether the PROBED Pallas collision kernel fits scoped VMEM.
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
 
-    The probed kernel's live set is dominated by per-(probe, band)
-    compare intermediates that q_tile narrowing cannot shrink (measured
-    round 5 on v5e: 64 bands x 4 probes needs 21.5 MB of Mosaic's 16 MB
-    stack even at q_tile=16). Past 32 signature words probed queries
-    must take the jnp formulation. Callers MUST make this decision
-    BEFORE building the grouped refine table — its strided-vs-contiguous
-    geometry follows the kernel choice, and a mismatched table silently
-    gathers the wrong slots.
+
+def scan_kernel(
+    capacity: int, group: int, *, width: int = 16, platform: str | None = None
+) -> str | None:
+    """The group-max route for a store: ``"triton"`` on a GPU, else None.
+
+    ``width`` is the kernel's contracted operand width (bitplane bits for
+    the dot kernel); Triton tiles must be powers of two, and its dot needs
+    every operand dimension >= 16. A store the kernel cannot tile (or any
+    non-GPU platform) takes the plain XLA formulation; the choice is
+    reported by ``DeviceStore.stats()["scan_kernel"]``.
     """
-    return probes <= 1 or bw <= 32
+    platform = platform or jax.default_backend()
+    if platform != "gpu":
+        return None
+    ok = (
+        _pow2(capacity)
+        and _pow2(group)
+        and _pow2(width)
+        and width >= 16
+        and capacity >= max(16, group)
+    )
+    return "triton" if ok else None
 
 
-def multiprobe_q_tile(q_tile: int, probes: int, bw: int = 32) -> int:
-    """Query tile for the multi-probe collision kernel.
+def _block_c(c: int, group: int) -> int:
+    return min(c, max(BLOCK_C, group))
 
-    The probed kernel's live set grows with ``probes * bw * q_tile``
-    (measured on v5e at chunk=8192: 32 bands x 4 probes overflows
-    Mosaic's 16 MB scoped stack at q_tile=128 — 19.74 MB — but compiles
-    at 64, and 16 bands x 4 probes compiles at the full 128), so the
-    tile is capped at the largest power of two keeping
-    ``probes * bw * q_tile <= 8192``. Past 32 signature words the
-    store block and per-band compare set grow on top of that product
-    (measured round 5: 64 bands x 4 probes at q_tile=32 still needs
-    23.5 MB of scoped stack), so the budget halves per doubling of
-    ``bw`` beyond 32.
+
+def _grouped_call(kernel, q_op, store_op, bias, *, store_t, group, mode, cost):
+    """Run a group-max kernel over a (query tile, slot tile) grid.
+
+    ``q_op``: ``(Q, K)`` query operand, padded here to the query tile and
+    sliced back. ``store_op``: ``(C, K)`` (``store_t=False``) or the
+    transposed ``(K, C)`` (``store_t=True``). ``bias``: ``(C,)`` int32.
+    Returns ``(Q, C // group)`` int32.
     """
-    if probes <= 1:
-        return q_tile
-    budget = 8192 * 32 // max(32, bw)
-    cap = budget // (probes * bw)
-    if cap < 8:
-        cap = 8
-    cap = 1 << (cap.bit_length() - 1)  # round DOWN to a power of two
-    return max(8, min(q_tile, cap))
+    if mode not in KERNEL_MODES[1:]:
+        raise ValueError(f"kernel must be 'triton' or 'interpret', got {mode!r}")
+    q, kq = q_op.shape
+    c = store_op.shape[1] if store_t else store_op.shape[0]
+    kc = store_op.shape[0] if store_t else store_op.shape[1]
+    bc = _block_c(c, group)
+    bq = min(BLOCK_Q, 1 << max(4, (q - 1).bit_length()))
+    q_pad = -(-q // bq) * bq
+    if q_pad != q:
+        q_op = jnp.pad(q_op, ((0, q_pad - q), (0, 0)))
+    if store_t:
+        store_spec = pl.BlockSpec((kc, bc), lambda i, j: (0, j))
+    else:
+        store_spec = pl.BlockSpec((bc, kc), lambda i, j: (j, 0))
+    out = pl.pallas_call(
+        kernel,
+        # Query tiles innermost: consecutive blocks read the same store
+        # tile, so the store streams from device memory about once.
+        grid=(q_pad // bq, c // bc),
+        in_specs=[
+            pl.BlockSpec((bq, kq), lambda i, j: (i, 0)),
+            store_spec,
+            pl.BlockSpec((bc,), lambda i, j: (j,)),
+        ],
+        out_specs=pl.BlockSpec((bq, bc // group), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((q_pad, c // group), jnp.int32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS, num_stages=2),
+        cost_estimate=pl.CostEstimate(
+            flops=cost, transcendentals=0,
+            bytes_accessed=int(
+                store_op.size * store_op.dtype.itemsize
+                + q_pad * kq * q_op.dtype.itemsize + c * 4
+                + q_pad * (c // group) * 4
+            ),
+        ),
+        interpret=mode == "interpret",
+        name="group_max_keys",
+    )(q_op, store_op, bias)
+    return out[:q] if q_pad != q else out
 
 
-def _make_kernel(
-    num_bands: int, words: int, group: int, scale: int, probes: int = 1
-):
-    """Build the kernel for one (q_tile, chunk) grid cell.
-
-    q_ref:    (QT, probes * BW) uint32 — query signature words, probe-major
-              (probe t's band-b word j at column ``t*BW + b*words + j``;
-              ``probes == 1`` is the standard single-signature layout)
-    sig_ref:  (BW, CH)  uint32 — transposed store chunk
-    bias_ref: (1, CH)   int32 — precomputed key bias
-              (:func:`_collision_key_bias`): ``tie`` for alive slots,
-              ``-num_bands * scale`` for dead ones. Alive key =
-              ``count*scale + tie`` (unchanged); a dead slot's key is
-              ``count*scale - B*scale <= 0``, i.e. never above an alive
-              slot with count >= 1 — and count-0 slots are non-results
-              either way (the refine stage drops them).
-    out_ref:  (QT, CH // group) int32 — per-group max keys
-
-    Bands are unrolled (num_bands is small on the fast path by
-    construction; larger band counts use the chunked fallback).
-    Multi-probe counting sums band matches over all probe variants —
-    equal to the per-band OR (hence still <= num_bands, so the key
-    packing and dead-slot bias are unchanged), because a band's probe
-    signatures are pairwise distinct and a slot's band words can equal
-    at most one of them.
-    """
-    bw = num_bands * words
-
-    def kernel(q_ref, sig_ref, bias_ref, out_ref):
-        qt = q_ref.shape[0]
-        ch = sig_ref.shape[1]
-        counts = jnp.zeros((qt, ch), dtype=jnp.int32)
-        for t in range(probes):
-            for b in range(num_bands):
-                col = t * bw + b * words
-                eq = sig_ref[b * words, :][None, :] == q_ref[:, col][:, None]
-                for w in range(1, words):
-                    eq &= (
-                        sig_ref[b * words + w, :][None, :]
-                        == q_ref[:, col + w][:, None]
-                    )
-                counts += eq.astype(jnp.int32)
-        key = counts * scale + bias_ref[0, :][None, :]
-        # Strided group-max: group j of this chunk holds slots
-        # {j, j + ngc, j + 2*ngc, ...} (ngc = chunk // group). Contiguous
-        # slice + max keeps Mosaic happy (2D->3D reshapes of vectors are
-        # unsupported) and every slice is a full-lane (qt, ngc) tile.
-        ngc = ch // group
-        gmax = key[:, :ngc]
-        for i in range(1, group):
-            gmax = jnp.maximum(gmax, key[:, i * ngc : (i + 1) * ngc])
-        out_ref[:, :] = gmax
-
-    return kernel
+def _group_max(key: jax.Array, group: int) -> jax.Array:
+    """Max over contiguous ``group``-slot runs of a ``(Q, C)`` key block."""
+    q, c = key.shape
+    return key.reshape(q, c // group, group).max(axis=-1)
 
 
-def _make_hamming_kernel(
-    group: int, scale: int, offset: int | None = None, shift: int = 1
-):
-    """Kernel: MXU dots over +-1 bitplanes -> packed keys -> group-max.
-
-    q_ref:    (QT, P)   int8  — query operand: +-1 bitplanes (symmetric
-              Hamming, the default ``offset=None, shift=1``) or quantised
-              projection coordinates in [-qmax, qmax] (asymmetric
-              ranking, ``offset = P * qmax`` with ``shift`` chosen so the
-              key fits int32 — `lshrs_tpu.ops.asymmetric`)
-    sig_ref:  (CH, P)   int8  — store bitplane chunk
-    bias_ref: (1, CH)   int32 — precomputed key bias (see
-              :func:`_hamming_key_bias`): ``tie + scale`` for alive
-              slots, ``-maxscaled * scale`` for dead ones. Folding the
-              alive mask / +1 / max(tie, 0) of the original formulation
-              into one precomputed vector halves the kernel's per-element
-              VPU ops (the dominant cost at large capacity: the VPU work
-              is ~15 ms/8192q at 1M slots vs ~11 ms of MXU dots).
-    out_ref:  (QT, CH // group) int32 — strided per-group max keys
-
-    Ordering proof sketch (symmetric instantiation offset=P, shift=1):
-    for alive slots ``key = ((dots+P)>>1)*scale + tie + scale`` is exactly
-    the original ``((dots+P)//2 + 1)*scale + tie`` — lexicographic
-    (similarity, tie), globally distinct. Any dead slot's key is
-    ``((dots+P)>>1)*scale - P*scale <= P*scale - P*scale = 0 < scale``,
-    i.e. strictly below every alive key, whatever its stale bitplanes
-    contain. |key| <= (P+2)*scale — the same int32 bound as before
-    (`lshrs_tpu.ops.hamming.supports_hamming_grouped`). The general case
-    replaces P with ``maxscaled = (2*offset) >> shift``: dots lie in
-    [-offset, offset], so the scaled term lies in [0, maxscaled] and the
-    identical argument applies with |key| <= (maxscaled + 2)*scale.
-
-    Fusing the dot with key construction keeps the (QT, CH) dot matrix in
-    VMEM instead of round-tripping it through HBM (the XLA formulation's
-    dominant cost at large capacities).
-    """
-
-    def kernel(q_ref, sig_ref, bias_ref, out_ref):
-        p = q_ref.shape[1]
-        off = p if offset is None else offset
-        ch = sig_ref.shape[0]
-        dots = jax.lax.dot_general(
-            q_ref[:, :],
-            sig_ref[:, :],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )  # (QT, CH) on the MXU
-        key = ((dots + off) >> shift) * scale + bias_ref[0, :][None, :]
-        ngc = ch // group
-        gmax = key[:, :ngc]
-        for i in range(1, group):
-            gmax = jnp.maximum(gmax, key[:, i * ngc : (i + 1) * ngc])
-        out_ref[:, :] = gmax
-
-    return kernel
+# ---------------------------------------------------------------------------
+# dot kernel: int8 bitplanes (Hamming, cascade coarse pass, asymmetric)
+# ---------------------------------------------------------------------------
 
 
-def _collision_key_bias(
-    tie: jax.Array, *, scale: int, num_bands: int
-) -> jax.Array:
-    """Precomputed per-slot key bias for the collision kernel."""
-    return jnp.where(tie >= 0, tie, -num_bands * scale)
+def _dot_kernel(q_ref, planes_ref, bias_ref, out_ref, *, group, scale, offset, shift):
+    dots = pl.dot(q_ref[...], planes_ref[...], trans_b=True)  # int32 (bq, bc)
+    key = ((dots + offset) >> shift) * scale + bias_ref[...][None, :]
+    out_ref[...] = _group_max(key, group)
 
 
-def _hamming_key_bias(tie: jax.Array, *, scale: int, maxscaled: int) -> jax.Array:
-    """Precomputed per-slot key bias for the bitplane dot-ranking kernel.
+def _dot_key_bias(tie: jax.Array, *, scale: int, maxscaled: int) -> jax.Array:
+    """Per-slot key bias for the dot ranking: ``tie + scale`` for alive
+    slots, ``-maxscaled * scale`` for dead ones.
 
-    ``maxscaled`` is the largest value the kernel's scaled-dot term can
-    take — ``num_perm`` for symmetric Hamming (``(2P)>>1``), generally
-    ``(2*offset) >> shift`` — so dead keys land strictly below zero.
+    ``maxscaled`` is the largest value the scaled-dot term can take —
+    ``num_perm`` for symmetric Hamming, generally ``(2*offset) >> shift``
+    — so every dead key is ``<= 0`` and every alive key ``>= scale``.
     """
     return jnp.where(tie >= 0, tie + scale, -maxscaled * scale)
 
 
-def _make_hamming_packed_kernel(words: int, group: int, scale: int, num_perm: int):
-    """Kernel: popcount Hamming over PACKED uint32 words -> group-max keys.
-
-    q_ref:    (QT, BW)  uint32 — query signature words
-    sig_ref:  (BW, CH)  uint32 — transposed store chunk
-    bias_ref: (1, CH)   int32 — ``(P+1)*scale + tie`` alive, ``0`` dead
-              (alive key = the original ``(P+1-ham)*scale + tie``; dead
-              key = ``-ham*scale <= 0 < scale`` <= every alive key)
-    out_ref:  (QT, CH // group) int32
-
-    Zero extra memory vs the int8 bitplane formulation (which costs
-    ``num_perm`` bytes/slot); ~VPU-rate instead of MXU-rate.
-    """
-
-    def kernel(q_ref, sig_ref, bias_ref, out_ref):
-        ch = sig_ref.shape[1]
-        ham = None
-        for w in range(words):
-            pc = jax.lax.population_count(
-                sig_ref[w, :][None, :] ^ q_ref[:, w][:, None]
-            ).astype(jnp.int32)
-            ham = pc if ham is None else ham + pc
-        key = bias_ref[0, :][None, :] - ham * scale
-        ngc = ch // group
-        gmax = key[:, :ngc]
-        for i in range(1, group):
-            gmax = jnp.maximum(gmax, key[:, i * ngc : (i + 1) * ngc])
-        out_ref[:, :] = gmax
-
-    return kernel
-
-
-def _hamming_packed_key_bias(
-    tie: jax.Array, *, scale: int, num_perm: int
-) -> jax.Array:
-    """Precomputed per-slot key bias for the packed Hamming kernel."""
-    return jnp.where(tie >= 0, (num_perm + 1) * scale + tie, 0)
-
-
 @partial(
     jax.jit,
-    static_argnames=("num_perm", "group", "chunk", "q_tile", "scale", "interpret"),
+    static_argnames=("group", "chunk", "scale", "offset", "shift", "kernel"),
 )
-def hamming_packed_group_max_keys(
-    sig_t: jax.Array,
-    tie: jax.Array,
-    qwords: jax.Array,
-    *,
-    num_perm: int,
-    group: int,
-    chunk: int,
-    q_tile: int,
-    scale: int,
-    interpret: bool = False,
-) -> jax.Array:
-    """Per-group maxima of packed (P+1-hamming, tie) keys from packed words."""
-    bw, c = sig_t.shape
-    q = qwords.shape[0]
-    assert c % chunk == 0 and chunk % group == 0 and q % q_tile == 0
-
-    kernel = _make_hamming_packed_kernel(bw, group, scale, num_perm)
-    bias = _hamming_packed_key_bias(tie, scale=scale, num_perm=num_perm)
-    grid = (c // chunk, q // q_tile)  # chunk-major: store block stays in VMEM
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((q_tile, bw), lambda ci, qi: (qi, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bw, chunk), lambda ci, qi: (0, ci), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, chunk), lambda ci, qi: (0, ci), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (q_tile, chunk // group), lambda ci, qi: (qi, ci), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((q, c // group), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=3 * q * c * bw,
-            bytes_accessed=bw * c * 4 + q * bw * 4 + c * 4 + q * (c // group) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(qwords, sig_t, bias.reshape(1, c))
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "group", "chunk", "q_tile", "scale", "interpret", "offset", "shift",
-    ),
-)
-def hamming_group_max_keys(
+def dot_group_max_keys(
     planes: jax.Array,
     tie: jax.Array,
     qbits: jax.Array,
     *,
     group: int,
     chunk: int,
-    q_tile: int,
     scale: int,
-    interpret: bool = False,
     offset: int | None = None,
     shift: int = 1,
+    kernel: str | None = None,
 ) -> jax.Array:
-    """Per-group maxima of packed (scaled-dot, tie) keys over bitplanes.
+    """Per-group maxima of ``((dots + offset) >> shift) * scale + bias``.
 
     Args:
-        planes: ``(C, P)`` int8 +-1 store bitplanes.
+        planes: ``(C, P)`` int8 ±1 store bitplanes.
         tie: ``(C,)`` int32 tie keys (-1 dead).
-        qbits: ``(Q, P)`` int8 query operand (+-1 bitplanes, or quantised
-            coordinates for asymmetric ranking); Q a multiple of q_tile.
-        offset / shift: key packing ``((dots+offset)>>shift)*scale + tie``
-            — default (None, 1) is the symmetric Hamming instantiation
-            ``offset = P``.
+        qbits: ``(Q, P)`` int8 query operand: ±1 bitplanes (symmetric
+            Hamming, ``offset=None`` meaning ``P``, ``shift=1``) or
+            quantised coordinates in ``[-qmax, qmax]`` (asymmetric
+            ranking, ``offset = P * qmax``).
+        chunk: slot chunk of the XLA formulation's ``lax.scan``.
+        kernel: see :data:`KERNEL_MODES`.
+
+    For alive slots the key is ``((dots+P)>>1 + 1) * scale + tie`` in the
+    symmetric case — lexicographic (similarity, tie), globally distinct.
+    Dead slots score ``<= 0``, below every alive key, whatever their stale
+    bitplanes hold. ``|key| <= (maxscaled + 2) * scale``.
 
     Returns:
-        ``(Q, C // group)`` int32 group-max keys, strided-in-chunk grouping
-        (same mapping as :func:`group_max_keys`).
+        ``(Q, C // group)`` int32; group ``g`` is slots
+        ``[g * group, (g + 1) * group)``.
     """
     c, p = planes.shape
     q = qbits.shape[0]
-    assert c % chunk == 0 and chunk % group == 0 and q % q_tile == 0
-
     off = p if offset is None else offset
-    kernel = _make_hamming_kernel(group, scale, offset, shift)
-    bias = _hamming_key_bias(tie, scale=scale, maxscaled=(2 * off) >> shift)
-    grid = (c // chunk, q // q_tile)  # chunk-major: planes block stays in VMEM
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((q_tile, p), lambda ci, qi: (qi, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((chunk, p), lambda ci, qi: (ci, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, chunk), lambda ci, qi: (0, ci), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (q_tile, chunk // group), lambda ci, qi: (qi, ci), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((q, c // group), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * q * c * p,
-            bytes_accessed=c * p + q * p + c * 4 + q * (c // group) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(qbits, planes, bias.reshape(1, c))
+    bias = _dot_key_bias(tie, scale=scale, maxscaled=(2 * off) >> shift)
+    if kernel is not None:
+        body = partial(_dot_kernel, group=group, scale=scale, offset=off, shift=shift)
+        return _grouped_call(
+            body, qbits, planes, bias, store_t=False, group=group, mode=kernel,
+            cost=2 * q * c * p,
+        )
+    nchunks = c // chunk
+
+    def step(carry, xs):
+        chunk_planes, chunk_bias = xs
+        dots = jax.lax.dot_general(
+            qbits,
+            chunk_planes,
+            dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32,
+        )
+        key = ((dots + off) >> shift) * scale + chunk_bias[None, :]
+        return carry, _group_max(key, group)
+
+    _, gmax = jax.lax.scan(
+        step, 0, (planes.reshape(nchunks, chunk, p), bias.reshape(nchunks, chunk))
+    )
+    return jnp.moveaxis(gmax, 0, 1).reshape(q, c // group)
+
+
+# ---------------------------------------------------------------------------
+# collision kernel: per-band word equality over the transposed store
+# ---------------------------------------------------------------------------
+
+
+def _collision_kernel(
+    q_ref, sig_ref, bias_ref, out_ref, *, num_bands, words, group, scale, probes
+):
+    bw = num_bands * words
+    counts = None
+    for t in range(probes):
+        for b in range(num_bands):
+            col = t * bw + b * words
+            eq = sig_ref[b * words, :][None, :] == q_ref[:, col][:, None]
+            for w in range(1, words):
+                eq &= sig_ref[b * words + w, :][None, :] == q_ref[:, col + w][:, None]
+            counts = eq.astype(jnp.int32) if counts is None else counts + eq
+    key = counts * scale + bias_ref[...][None, :]
+    out_ref[...] = _group_max(key, group)
 
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "num_bands", "words", "group", "chunk", "q_tile", "scale",
-        "interpret", "probes",
-    ),
+    static_argnames=("num_bands", "words", "group", "scale", "probes", "kernel"),
 )
-def group_max_keys(
+def collision_group_max_keys(
     sig_t: jax.Array,
     tie: jax.Array,
     qwords: jax.Array,
@@ -383,61 +275,35 @@ def group_max_keys(
     num_bands: int,
     words: int,
     group: int,
-    chunk: int,
-    q_tile: int,
     scale: int,
-    interpret: bool = False,
     probes: int = 1,
+    kernel: str | None = None,
 ) -> jax.Array:
-    """Per-group maxima of packed (count, tie) selection keys.
+    """Per-group maxima of packed ``(count, tie)`` collision keys.
 
     Args:
         sig_t: ``(num_bands * words, C)`` uint32 transposed signatures.
-        tie: ``(C,)`` int32 — ``S - 1 - rank`` for alive slots, ``-1`` for
-            dead slots (the kernel masks their counts to zero).
-        qwords: ``(Q, probes * num_bands * words)`` uint32, probe-major;
-            Q a multiple of q_tile.
-        group / chunk / q_tile: tiling (group | chunk | C, q_tile | Q).
-        scale: ``key_scale(C)``.
-        probes: multi-probe variants per query (1 = standard). The count
-            is the number of bands matching ANY variant — still
-            ``<= num_bands`` (variants are pairwise distinct per band).
+        tie: ``(C,)`` int32 — ``S - 1 - rank`` alive, ``-1`` dead.
+        qwords: ``(Q, probes * num_bands * words)`` uint32, probe-major.
+        kernel: see :data:`KERNEL_MODES`.
 
-    Returns:
-        ``(Q, C // group)`` int32 group-max keys.
+    Alive key ``count * scale + tie``; dead key ``(count - B) * scale <= 0``.
+    ``count`` is the number of bands matching any probe variant
+    (`lshrs_tpu.ops.scan.band_counts_t`).
     """
     bw, c = sig_t.shape
     q = qwords.shape[0]
-    assert c % chunk == 0 and chunk % group == 0 and q % q_tile == 0
-    assert qwords.shape[1] == probes * bw
+    bias = jnp.where(tie >= 0, tie, -num_bands * scale)
+    if kernel is None:
+        from lshrs_tpu.ops.scan import band_counts_t
 
-    kernel = _make_kernel(num_bands, words, group, scale, probes)
-    bias = _collision_key_bias(tie, scale=scale, num_bands=num_bands)
-    # Chunk-major grid: the (large) store block's index map is constant
-    # across the inner q-tile axis, so Mosaic keeps it in VMEM instead of
-    # re-streaming the whole store once per query tile.
-    grid = (c // chunk, q // q_tile)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (q_tile, probes * bw),
-                lambda ci, qi: (qi, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((bw, chunk), lambda ci, qi: (0, ci), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, chunk), lambda ci, qi: (0, ci), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (q_tile, chunk // group), lambda ci, qi: (qi, ci), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((q, c // group), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * q * c * bw * probes,
-            bytes_accessed=bw * c * 4 + q * probes * bw * 4 + c * 4
-            + q * (c // group) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(qwords, sig_t, bias.reshape(1, c))
+        counts = band_counts_t(sig_t, qwords, num_bands, probes)
+        return _group_max(counts * scale + bias[None, :], group)
+    body = partial(
+        _collision_kernel, num_bands=num_bands, words=words, group=group,
+        scale=scale, probes=probes,
+    )
+    return _grouped_call(
+        body, qwords, sig_t, bias, store_t=True, group=group, mode=kernel,
+        cost=2 * q * c * bw * probes,
+    )

@@ -1,9 +1,9 @@
-"""Device-fused cosine rerank over the HBM-resident payload matrix.
+"""Device-fused cosine rerank over the device-resident payload matrix.
 
 The reference's top-p mode round-trips every candidate through a
 user-supplied ``vector_fetch_fn`` and reranks on host
 (`/root/reference/lshrs/core/main.py:632-647`). With ``store_vectors=True``
-the payload lives in HBM, so rerank is one MXU matvec over the whole store
+the payload lives in device memory, so rerank is one matvec over the store
 plus a masked two-key sort — only the top ``max_out`` (id, score) pairs and
 the candidate count ever reach the host.
 
@@ -57,12 +57,13 @@ def rerank_topp_core(
         ordered by (cosine desc, id asc); entries past ``n_candidates``
         carry id -1.
     """
-    # HIGHEST precision: TPU matmuls default to bf16 passes (~1e-3
-    # relative error) — the reference computes cosines in host float32,
-    # and ~1e-3 noise visibly reorders near-ties. A bfloat16 payload is
+    # HIGHEST precision: default-precision float32 matmuls may run reduced
+    # (bf16 passes or TF32, ~1e-3 relative error) — the reference computes
+    # cosines in host float32, and ~1e-3 noise visibly reorders near-ties.
+    # HIGHEST is true float32 on every backend. A bfloat16 payload is
     # already rounded, so it keeps the fast native path. An int8 payload
     # (per-row-scale quantized, see DeviceStore) upcasts to bf16 for the
-    # MXU; its ``pnorm`` is the norm of the stored integer rows, so the
+    # matmul; its ``pnorm`` is the norm of the stored integer rows, so the
     # per-row scale cancels out of the cosine.
     if payload.dtype == jnp.int8:
         payload = payload.astype(jnp.bfloat16)
@@ -72,7 +73,7 @@ def rerank_topp_core(
         qvec.astype(payload.dtype) if bf16_payload else qvec,
         preferred_element_type=jnp.float32,
         precision=None if bf16_payload else jax.lax.Precision.HIGHEST,
-    )  # (C,) — MXU matvec
+    )  # (C,) matvec
     qn = jnp.sqrt(jnp.sum(qvec * qvec))
     denom = jnp.maximum(pnorm * qn, 1e-30)
     sims = dots / denom
@@ -100,7 +101,7 @@ def rerank_topp_batch_core(
     *,
     max_out: int,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Batched :func:`rerank_topp_core`: one MXU matmul for all queries.
+    """Batched :func:`rerank_topp_core`: one matmul for all queries.
 
     Args:
         counts: ``(Q, C)`` int32 per-query collision counts.
@@ -111,14 +112,14 @@ def rerank_topp_batch_core(
         ordered by (cosine desc, id asc).
 
     Precision: float32 queries against a float32 payload get a
-    HIGHEST-precision matmul (TPU matmuls otherwise run bf16 passes with
-    ~1e-3 relative error — enough to reorder near-ties vs the
-    reference's host-f32 cosines). Inputs that *arrive* rounded — a
+    HIGHEST-precision matmul, true float32 (default precision may run
+    bf16 passes or TF32 with ~1e-3 relative error — enough to reorder
+    near-ties vs the reference's host-f32 cosines). Inputs that *arrive* rounded — a
     bfloat16 query wire or a bfloat16 resident payload — keep the fast
     native-precision path.
     """
     if payload.dtype == jnp.int8:
-        # Quantized payload (see DeviceStore): bf16 MXU path; the per-row
+        # Quantized payload (see DeviceStore): bf16 matmul; the per-row
         # quantization scale cancels out of the cosine because pnorm is
         # the stored integer rows' norm.
         payload = payload.astype(jnp.bfloat16)
@@ -185,10 +186,7 @@ def rerank_topp_gather_core(
     max_out: int,
     max_candidates: int,
     group: int,
-    pallas_chunk: int,
-    q_tile: int,
-    use_pallas: bool,
-    interpret: bool = False,
+    kernel: str | None = None,
     sig_rows: jax.Array | None = None,
     narrow_r: int = 0,
     probes: int = 1,
@@ -202,7 +200,7 @@ def rerank_topp_gather_core(
     (`/root/reference/lshrs/core/main.py:633-647`) on device:
 
         1. group-max collision keys over the store (the same fused
-           Pallas/XLA stage the top-k fast path uses — VPU-rate compares,
+           stage the top-k fast path uses — elementwise compares,
            ~``dim/num_words`` x fewer FLOPs than the cosine matmul),
         2. top-``max_candidates`` groups by max key; because keys are
            globally distinct, every group containing a colliding slot
@@ -224,7 +222,7 @@ def rerank_topp_gather_core(
         qvecs: ``(Q, dim)`` float32 (or bfloat16 wire) queries.
         max_out: ranked prefix length per query.
         max_candidates: M — groups refined and slots reranked per query.
-        group / pallas_chunk / q_tile / use_pallas / sig_rows: fast-path
+        group / kernel / sig_rows: fast-path
             geometry, exactly as `collision_topk_grouped_core`.
 
     Returns:
@@ -238,10 +236,9 @@ def rerank_topp_gather_core(
         collision group was selected.
     """
     from lshrs_tpu.ops.bitpack import narrow_words_count
-    from lshrs_tpu.ops.pallas_scan import group_max_keys, key_scale
+    from lshrs_tpu.ops.pallas_scan import collision_group_max_keys, key_scale
     from lshrs_tpu.ops.scan import (
         _hierarchical_top_groups,
-        band_counts_t,
         gather_refine_group_rows,
         refine_counts_vs_query,
     )
@@ -253,49 +250,23 @@ def rerank_topp_gather_core(
     ng = c // group
 
     # -- stage 1: group-max keys (shared with the collision fast path) ------
-    if use_pallas:
-        from lshrs_tpu.ops.pallas_scan import multiprobe_q_tile
-
-        q_tile = multiprobe_q_tile(q_tile, probes, bw)
-        q_pad = -(-q // q_tile) * q_tile
-        qw = jnp.pad(qwords, ((0, q_pad - q), (0, 0))) if q_pad != q else qwords
-        gmax = group_max_keys(
-            sig_t, tie, qw,
-            num_bands=num_bands, words=w, group=group, chunk=pallas_chunk,
-            q_tile=q_tile, scale=scale, interpret=interpret, probes=probes,
-        )[:q]
-    else:
-        counts_full = band_counts_t(sig_t, qwords, num_bands, probes)
-        key_full = counts_full * (tie >= 0).astype(jnp.int32)[
-            None, :
-        ] * scale + jnp.maximum(tie, 0)[None, :]
-        gmax = key_full.reshape(q, ng, group).max(axis=-1)
+    gmax = collision_group_max_keys(
+        sig_t, tie, qwords,
+        num_bands=num_bands, words=w, group=group, scale=scale,
+        probes=probes, kernel=kernel,
+    )
 
     # -- stage 2: top-M groups + coverage detection -------------------------
     m = min(max_candidates, ng)
-    top_groups = _hierarchical_top_groups(
-        gmax, m=m, ngc=pallas_chunk // group if use_pallas else None
-    )
+    top_groups = _hierarchical_top_groups(gmax, m=m)
     gsel = jnp.take_along_axis(gmax, top_groups, axis=1)  # (Q, m)
     covered = (gsel.min(axis=1) < scale) | (m == ng)
 
     # -- stage 3: refine selected groups ------------------------------------
     mg = m * group
-    if use_pallas:
-        # Pallas grouping is strided within each chunk (see pallas_scan):
-        # group g = (chunk ci, lane j); its slots are ci*chunk + j + i*ngc.
-        ngc = pallas_chunk // group
-        ci = top_groups // ngc
-        j = top_groups % ngc
-        slots = (
-            ci[..., None] * pallas_chunk
-            + j[..., None]
-            + jnp.arange(group)[None, None, :] * ngc
-        ).reshape(q, mg)
-    else:
-        slots = (
-            top_groups[..., None] * group + jnp.arange(group)[None, None, :]
-        ).reshape(q, mg)
+    slots = (
+        top_groups[..., None] * group + jnp.arange(group)[None, None, :]
+    ).reshape(q, mg)
     if sig_rows is not None:
         # One wide row-gather per candidate group (8x faster than per-slot
         # gathers at 1M slots); slot order matches the arithmetic `slots`.
@@ -394,7 +365,7 @@ def rerank_topp_gather_core(
 rerank_topp_gather = partial(
     jax.jit,
     static_argnames=(
-        "num_bands", "max_out", "max_candidates", "group", "pallas_chunk",
-        "q_tile", "use_pallas", "interpret", "narrow_r", "probes",
+        "num_bands", "max_out", "max_candidates", "group", "kernel",
+        "narrow_r", "probes",
     ),
 )(rerank_topp_gather_core)

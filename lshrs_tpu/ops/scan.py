@@ -3,9 +3,9 @@
 This replaces the reference's query hot loop — one Redis SMEMBERS round-trip
 per band plus a Python dict accumulate
 (`/root/reference/lshrs/core/main.py:1088-1111`) — with fused device scans
-over the HBM-resident signature store, kept in *transposed* layout
+over the device-resident signature store, kept in *transposed* layout
 ``sig_t: (num_bands * W, capacity)`` so the slot axis is minor and every
-VPU compare runs with full lanes.
+compare runs over contiguous slots.
 
 Exact ordering contract: the reference sorts candidates by
 ``(-collision_count, index)`` (`/root/reference/lshrs/core/main.py:614`).
@@ -13,11 +13,11 @@ Plain ``lax.top_k`` breaks count ties by position, so selection keys embed
 each slot's *id-rank*: ``key = count * S + (S - 1 - rank)`` with all keys
 globally distinct. Two selection strategies share that key:
 
-- **Grouped fast path** (`collision_topk_grouped`): a Pallas kernel
-  (`lshrs_tpu.ops.pallas_scan`) fuses count + key + 64-slot group-max;
+- **Grouped fast path** (`collision_topk_grouped`): count + key +
+  64-slot group-max (`lshrs_tpu.ops.pallas_scan`);
   because keys are distinct, the top-k *groups by max* provably contain
   every true top-k slot, so only ``k * group`` candidate slots are
-  re-scored and exactly sorted. HBM candidate traffic drops by ``group``x.
+  re-scored and exactly sorted. Candidate traffic drops by ``group``x.
 - **Chunked fallback** (`collision_topk`): static `lax.scan` over chunks
   with per-chunk ``rank`` tie-break keys and a final two-key lexicographic
   merge — used when the key does not fit int32
@@ -38,9 +38,8 @@ import numpy as np
 
 from lshrs_tpu.ops.bitpack import narrow_words_count, pack_words_narrow
 from lshrs_tpu.ops.pallas_scan import (
-    group_max_keys,
+    collision_group_max_keys,
     key_scale,
-    multiprobe_q_tile,
     supports_fast_path,
 )
 
@@ -229,48 +228,31 @@ collision_topk = partial(
 # ---------------------------------------------------------------------------
 
 
-def build_grouped_refine_rows(
-    sig_rows_ext: jax.Array, *, group: int, strided_chunk: int | None
-) -> jax.Array:
+def build_grouped_refine_rows(sig_rows_ext: jax.Array, *, group: int) -> jax.Array:
     """Per-slot refine table -> GROUP-ROW refine table.
 
     The refinement stage needs the rows of every slot in each selected
-    group. Gathering them as per-slot rows costs one gather row per slot
-    (measured 46 ms per 8192 queries at 1M slots for 18-uint32 rows —
-    the TPU gather is row-count-bound at these widths); concatenating
-    each group's ``group`` slot rows into ONE wide table row makes the
-    same refinement a gather of ``m`` wide rows per query (5.6 ms for
-    the same workload — 8x). Pure reshape/transpose, no data inflation.
+    group. Concatenating each group's ``group`` slot rows into ONE wide
+    table row makes that refinement a gather of ``m`` wide rows per query
+    instead of ``m * group`` narrow ones. Pure reshape/transpose, no data
+    inflation. Groups are contiguous slot runs (group ``g`` holds slots
+    ``[g * group, (g + 1) * group)``), as every group-max formulation
+    produces them.
 
     Args:
         sig_rows_ext: ``(C, nc)`` uint32, ``nc = bw + 2`` (words|tie|id).
         group: slots per group.
-        strided_chunk: the Pallas kernels group STRIDED within each
-            chunk (group ``g = (ci, j)`` holds slots
-            ``ci*chunk + j + i*ngc``); pass the chunk size so table row
-            ``g`` matches kernel group ``g``. ``None`` = contiguous
-            grouping (the XLA fallback formulation).
 
     Returns:
         ``(C // group, nc * group)`` uint32; row ``g`` = group ``g``'s
         slot rows transposed to WORD-MAJOR order: ``nc`` contiguous
         ``group``-wide blocks (word 0 of every slot, then word 1, ...,
-        then tie, then id). Word-major matters: the refinement reads one
-        word column at a time, and column slices of slot-major rows have
-        minor dimension ``nc`` (~18) — far below the TPU's 128-lane tile,
-        so every pass pays ~7x padded traffic (measured 78 ms vs ~25 ms
-        per 8192 queries at 1M slots).
+        then tie, then id), so the refinement reads each word column as
+        one contiguous block.
     """
     c, nc = sig_rows_ext.shape
-    if strided_chunk is None:
-        r3 = sig_rows_ext.reshape(c // group, group, nc)
-        return jnp.transpose(r3, (0, 2, 1)).reshape(c // group, nc * group)
-    chunk = strided_chunk
-    ngc = chunk // group
-    # (nch, group, ngc, nc)[ci, i, j] = slot ci*chunk + i*ngc + j
-    r4 = sig_rows_ext.reshape(c // chunk, group, ngc, nc)
-    # row (ci, j) holds i = 0..group-1, word-major -> axes (ci, j, colc, i)
-    return jnp.transpose(r4, (0, 2, 3, 1)).reshape(c // group, nc * group)
+    r3 = sig_rows_ext.reshape(c // group, group, nc)
+    return jnp.transpose(r3, (0, 2, 1)).reshape(c // group, nc * group)
 
 
 def gather_refine_group_rows(
@@ -294,7 +276,7 @@ def gather_refine_group_rows(
     rows = jnp.take(rows_g, top_groups.reshape(-1), axis=0)
     # Materialize the gather before the per-word column slices: fused with
     # its consumers, XLA re-expands the one wide row-gather into nc
-    # element gathers (measured 94 ms vs 6 ms per 8192q at 1M slots).
+    # element gathers.
     rows = jax.lax.optimization_barrier(rows).reshape(q, m, nc, group)
     words = rows[:, :, :bw, :]
     tie = jax.lax.bitcast_convert_type(rows[:, :, bw, :], jnp.int32)
@@ -482,19 +464,11 @@ def _pool_top_groups(gmax: jax.Array, *, m: int) -> jax.Array:
     The cascade's deep refine pool (``m`` in the hundreds) is a heuristic
     candidate set — the refine stage re-ranks everything in it with true
     full-width keys — so pool selection does not need the exact top-m by
-    coarse key, only a set that contains (nearly) all of it. Exact
-    selection at ``m ~ 128`` is pathologically expensive on TPU: XLA
-    lowers ``lax.top_k`` to per-row sorts, and the round-5 stage profile
-    measured the hierarchical exact selector at **1,087 ms of the
-    cascade's 1,220 ms batch** at 4M slots (Q=8192, m=128) — 89% of the
-    engine in selection alone. This selector instead uses the TPU's
-    hardware-optimized partial-reduction primitive
-    (``jax.lax.approx_max_k``), measured >= 0.97 per-query set recall
-    vs exact selection on the same keys; misses concentrate at the pool
-    BOUNDARY (the m-th-place near-ties), exactly the slots the coarse
-    pass cannot rank anyway. Do NOT use for the exact single-pass
-    engines' ``m = k`` selection — their provable-exactness argument
-    needs the true top-k groups (:func:`_hierarchical_top_groups`).
+    coarse key, only a set that contains (nearly) all of it. This uses
+    ``jax.lax.approx_max_k``; on a GPU XLA lowers it to an exact sort, so
+    there it costs what exact selection costs. Do NOT use for the exact
+    single-pass engines' ``m = k`` selection — their provable-exactness
+    argument needs the true top-k groups (:func:`_hierarchical_top_groups`).
 
     The float32 cast is a value conversion (monotone; keys within
     ``2**(bits-24)`` collapse) — it can merge near-tied id-rank bits,
@@ -507,7 +481,7 @@ def _pool_top_groups(gmax: jax.Array, *, m: int) -> jax.Array:
     return idx.astype(jnp.int32)
 
 
-def _hierarchical_top_groups(gmax: jax.Array, *, m: int, ngc: int | None) -> jax.Array:
+def _hierarchical_top_groups(gmax: jax.Array, *, m: int) -> jax.Array:
     """Exact top-m group indices from per-group max keys.
 
     For wide group-max rows a flat ``lax.top_k`` dominates selection cost
@@ -520,8 +494,7 @@ def _hierarchical_top_groups(gmax: jax.Array, *, m: int, ngc: int | None) -> jax
     ``m = 64``) stay block-local instead of full-row sorts.
     """
     q, ng = gmax.shape
-    if ngc is None:
-        ngc = min(ng, 128)
+    ngc = min(ng, 128)
     # XLA's flat top_k cost grows superlinearly past ~2k columns; the
     # hierarchy is effectively free, so prefer it whenever it applies.
     if ng < 2048 or ng % ngc != 0 or ng // ngc <= m:
@@ -546,10 +519,7 @@ def collision_topk_grouped_core(
     num_bands: int,
     k: int,
     group: int,
-    pallas_chunk: int,
-    q_tile: int,
-    use_pallas: bool,
-    interpret: bool = False,
+    kernel: str | None = None,
     sig_rows: jax.Array | None = None,
     narrow_r: int = 0,
     probes: int = 1,
@@ -561,21 +531,18 @@ def collision_topk_grouped_core(
         ids: ``(C,)`` int32, -1 dead.
         tie: ``(C,)`` int32 — ``S - 1 - global_id_rank`` for alive slots,
             -1 for dead (see :func:`compute_global_tie`).
-        use_pallas: run the fused Pallas kernel (TPU); otherwise an
-            equivalent jnp formulation (CPU tests / tiny stores).
+        kernel: group-max route (`lshrs_tpu.ops.pallas_scan.KERNEL_MODES`);
+            None is the plain XLA formulation.
         sig_rows: optional ``(C // group, group * (nw + 2))`` GROUPED
-            refine table (see :func:`build_grouped_refine_rows`, built
-            with ``strided_chunk=pallas_chunk`` iff ``use_pallas``). When
+            refine table (see :func:`build_grouped_refine_rows`). When
             given, the refinement gathers one wide row per candidate
-            GROUP — all its slots' words, ties and ids together — which
-            is 8x faster than per-slot row gathers at 1M slots (the TPU
-            gather is row-count-bound at narrow widths).
+            GROUP — all its slots' words, ties and ids together — instead
+            of ``group`` per-slot gathers.
         narrow_r: 0 when ``sig_rows`` carries word-aligned words
             (``nw = BW``); else ``rows_per_band``, meaning the table is
             narrow-packed (``nw = narrow_words_count(...)`` — see
             `lshrs_tpu.ops.bitpack.pack_words_narrow`; refine-gather
-            traffic halves at r=16, measured -22 ms per 16k queries at
-            131k slots on v5e).
+            traffic halves at r=16).
         probes: multi-probe variants per query; ``qwords`` is then
             ``(Q, probes * BW)`` probe-major and the count is the number
             of bands matching ANY variant (still ``<= num_bands``, so the
@@ -587,38 +554,16 @@ def collision_topk_grouped_core(
     scale = key_scale(c)
     ng = c // group
 
-    if use_pallas:
-        q_tile = multiprobe_q_tile(q_tile, probes, bw)
-        q_pad = -(-q // q_tile) * q_tile
-        qw = (
-            jnp.pad(qwords, ((0, q_pad - q), (0, 0))) if q_pad != q else qwords
-        )
-        gmax = group_max_keys(
-            sig_t,
-            tie,
-            qw,
-            num_bands=num_bands,
-            words=w,
-            group=group,
-            chunk=pallas_chunk,
-            q_tile=q_tile,
-            scale=scale,
-            interpret=interpret,
-            probes=probes,
-        )[:q]
-    else:
-        counts = band_counts_t(sig_t, qwords, num_bands, probes)
-        key = counts * (tie >= 0).astype(jnp.int32)[None, :] * scale + jnp.maximum(
-            tie, 0
-        )[None, :]
-        gmax = key.reshape(q, ng, group).max(axis=-1)
+    gmax = collision_group_max_keys(
+        sig_t, tie, qwords,
+        num_bands=num_bands, words=w, group=group, scale=scale,
+        probes=probes, kernel=kernel,
+    )
 
     # Top-k groups by max provably contain every true top-k slot (keys are
     # globally distinct), so re-scoring their k*group slots is exact.
     m = min(k, ng)
-    top_groups = _hierarchical_top_groups(
-        gmax, m=m, ngc=pallas_chunk // group if use_pallas else None
-    )
+    top_groups = _hierarchical_top_groups(gmax, m=m)
     mg = m * group
     if sig_rows is not None:
         nw = narrow_words_count(num_bands, narrow_r) if narrow_r else bw
@@ -633,21 +578,9 @@ def collision_topk_grouped_core(
         cand_tie = cand_tie.reshape(q, mg)
         cand_ids = cand_ids.reshape(q, mg)
     else:
-        if use_pallas:
-            # Pallas grouping is strided within each chunk (pallas_scan):
-            # group g = chunk ci, lane j; its slots are ci*chunk + j + i*ngc.
-            ngc = pallas_chunk // group
-            ci = top_groups // ngc
-            j = top_groups % ngc
-            slots = (
-                ci[..., None] * pallas_chunk
-                + j[..., None]
-                + jnp.arange(group)[None, None, :] * ngc
-            ).reshape(q, m * group)
-        else:
-            slots = (
-                top_groups[..., None] * group + jnp.arange(group)[None, None, :]
-            ).reshape(q, m * group)  # (Q, m*group)
+        slots = (
+            top_groups[..., None] * group + jnp.arange(group)[None, None, :]
+        ).reshape(q, m * group)  # (Q, m*group)
         cand_sig = jnp.take(sig_t, slots.reshape(-1), axis=1).reshape(bw, q, mg)
         counts = None
         for t in range(probes):
@@ -678,10 +611,7 @@ def collision_topk_grouped_core(
 
 collision_topk_grouped = partial(
     jax.jit,
-    static_argnames=(
-        "num_bands", "k", "group", "pallas_chunk", "q_tile", "use_pallas",
-        "interpret", "narrow_r", "probes",
-    ),
+    static_argnames=("num_bands", "k", "group", "kernel", "narrow_r", "probes"),
 )(collision_topk_grouped_core)
 
 

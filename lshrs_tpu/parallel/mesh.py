@@ -2,7 +2,7 @@
 
 The index's single scale axis is *slots* (vector count x signature width);
 it shards as data parallelism over a 1-D mesh. Queries are replicated,
-shard-local top-k lists merge over ICI with one all-gather (see
+shard-local top-k lists merge over the interconnect with one all-gather (see
 `lshrs_tpu.parallel.sharded`), so the collective payload per query is
 ``O(nshards * k)`` ints — independent of index size.
 """

@@ -7,7 +7,7 @@ each device scanning only its columns. A query executes SPMD under
 `shard_map`:
 
     replicate query words  ->  shard-local fused scan + exact local top-k
-                           ->  `all_gather` of (count, id) k-lists over ICI
+                           ->  `all_gather` of (count, id) k-lists
                            ->  identical exact merge on every device
 
 The merge key is (count desc, id asc) — the same total order the
@@ -32,7 +32,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from lshrs_tpu.ops.bitpack import pack_words_narrow
 from lshrs_tpu.ops.hamming import (
-    hamming_q_tile,
     hamming_topk_cascade_core,
     hamming_topk_chunked_core,
     hamming_topk_core,
@@ -41,7 +40,6 @@ from lshrs_tpu.ops.hamming import (
     supports_hamming_grouped,
     unpack_bitplanes,
 )
-from lshrs_tpu.ops.pallas_scan import probed_pallas_ok
 from lshrs_tpu.ops.scan import (
     build_grouped_refine_rows,
     collision_counts_core,
@@ -57,7 +55,7 @@ __all__ = ["ShardedDeviceStore"]
 
 
 class ShardedDeviceStore(DeviceStore):
-    """`DeviceStore` with slot-axis sharding and ICI top-k merge.
+    """`DeviceStore` with slot-axis sharding and all-gather top-k merge.
 
     Args:
         mesh: 1-D device mesh with a power-of-two device count; its single
@@ -120,20 +118,19 @@ class ShardedDeviceStore(DeviceStore):
             self._tie = _sharded_tie(self.mesh, self.axis, self._ids)
             self._ranks_dirty = False
 
-    def _refine_rows(self, group: int, strided_chunk: int | None) -> jax.Array:
+    def _refine_rows(self, group: int) -> jax.Array:
         # Build each shard's grouped refine table locally under shard_map
         # (the base class's reshape/transpose on a sharded global array
         # would tempt GSPMD into cross-shard data movement). Output stays
         # P(axis, None): local block g = local group g, as the shard-local
         # query cores expect.
-        key = (group, strided_chunk)
+        key = group
         cached = self._rows_ext.pop(key, None)
         if cached is None:
             self._ensure_ranks()
             cached = _sharded_refine_rows(
                 self.mesh, self.axis, self._sig_rows, self._tie, self._ids,
-                group=group, strided_chunk=strided_chunk,
-                narrow_r=self._refine_narrow_r,
+                group=group, narrow_r=self._refine_narrow_r,
             )
         # LRU-bounded, same policy as the base class (see _MAX_REFINE_GEOMETRIES).
         self._rows_ext[key] = cached
@@ -297,22 +294,6 @@ class ShardedDeviceStore(DeviceStore):
             and local % self.group == 0
         )
 
-    def _pallas_chunk(self) -> int:
-        return min(max(4096, self.group * 128), self._local_rows())
-
-    def _use_pallas(self) -> bool:
-        local = self._local_rows()
-        return (
-            jax.default_backend() == "tpu"
-            and local % self._pallas_chunk() == 0
-            and local >= self.group * 128
-        )
-
-    def _rerank_cost_rows(self) -> int:
-        # The rerank cost model scales with per-SHARD rows (every shard
-        # scans/gathers only its local block under shard_map).
-        return self._local_rows()
-
     def _expected_candidates(self) -> float:
         # Per-shard expectation: the gather budget applies per shard.
         return super()._expected_candidates() / self.n_shards
@@ -326,17 +307,12 @@ class ShardedDeviceStore(DeviceStore):
         """Shard_map gather rerank: each shard reranks its local
         candidates exactly (shard-local tie keys are exactly what the
         gather core expects per block), then the per-shard (cosine, id)
-        k-lists merge over ICI — the same merge-correctness argument as
+        k-lists merge with one all-gather — the same merge-correctness argument as
         the top-k path, with cosine as the (absolute, shard-independent)
         primary key. The per-query candidate budget is ``mc`` PER SHARD."""
         self._ensure_ranks()
         ids_x, tie_x = self._filtered_ids_tie(where)
-        local = self._local_rows()
-        group = min(self.group, local)
-        use_pallas = self._use_pallas() and probed_pallas_ok(
-            probes, self._sig_t.shape[0]
-        )
-        pallas_chunk = self._pallas_chunk()
+        group = min(self.group, self._local_rows())
         return _sharded_topp_gather(
             self.mesh,
             self.axis,
@@ -345,18 +321,14 @@ class ShardedDeviceStore(DeviceStore):
             ids_x,
             tie_x,
             self._sig_t,
-            self._refine_rows_for(group, pallas_chunk, use_pallas)
-            if where is None
-            else self._sig_rows,
+            self._refine_rows(group) if where is None else self._sig_rows,
             qw,
             qv_dev,
             num_bands=self.num_bands,
             max_out=max_out,
             max_candidates=mc,
             group=group,
-            pallas_chunk=pallas_chunk,
-            q_tile=min(128, _next_pow2(max(8, qw.shape[0]))),
-            use_pallas=use_pallas,
+            kernel=self._scan_kernel(),
             narrow_r=self._refine_narrow_r if where is None else 0,
             probes=probes,
             use_rows=where is None,
@@ -396,10 +368,7 @@ class ShardedDeviceStore(DeviceStore):
             self._ensure_ranks()
             local = self._local_rows()
             group = min(self.group, local)
-            use_pallas = self._use_pallas() and probed_pallas_ok(
-                probes, self._sig_t.shape[0]
-            )
-            pallas_chunk = self._pallas_chunk()
+            kernel = self._scan_kernel()
             out = max(1, min(max_out, local))
             num_bands, rows_per_band = self.num_bands, self.rows_per_band
             mesh, axis = self.mesh, self.axis
@@ -409,9 +378,7 @@ class ShardedDeviceStore(DeviceStore):
             state = (
                 self._payload, self._pnorm, ids_x, tie_x,
                 self._sig_t,
-                self._refine_rows_for(group, pallas_chunk, use_pallas)
-                if use_rows
-                else self._sig_rows,
+                self._refine_rows(group) if use_rows else self._sig_rows,
             )
             snapshot_gen = self._generation
 
@@ -436,9 +403,7 @@ class ShardedDeviceStore(DeviceStore):
             ids_o, sims, n, _exact = _sharded_topp_gather(
                 mesh, axis, *st, q, qv,
                 num_bands=num_bands, max_out=out, max_candidates=mc,
-                group=group, pallas_chunk=pallas_chunk,
-                q_tile=min(128, _next_pow2(max(8, q.shape[0]))),
-                use_pallas=use_pallas,
+                group=group, kernel=kernel,
                 narrow_r=narrow_r, probes=probes, use_rows=use_rows,
             )
             return ids_o, sims, n
@@ -461,16 +426,12 @@ class ShardedDeviceStore(DeviceStore):
         self._ensure_ranks()
         ids_x, tie_x = self._filtered_ids_tie(where)
         k_eff = max(1, min(k, self._local_rows()))
+        group = min(self.group, self._local_rows())
         return _sharded_topk(
             self.mesh,
             self.axis,
             self._sig_t,
-            self._refine_rows_for(
-                min(self.group, self._local_rows()),
-                self._pallas_chunk(),
-                self._use_pallas()
-                and probed_pallas_ok(probes, self._sig_t.shape[0]),
-            )
+            self._refine_rows(group)
             if self._use_grouped() and where is None
             else self._sig_rows,
             ids_x,
@@ -481,28 +442,12 @@ class ShardedDeviceStore(DeviceStore):
             k=k_eff,
             chunk=min(self.chunk, self._local_rows()),
             grouped=self._use_grouped(),
-            group=min(self.group, self._local_rows()),
-            pallas_chunk=self._pallas_chunk(),
-            q_tile=min(128, _next_pow2(max(8, qw.shape[0]))),
-            use_pallas=self._use_pallas()
-            and probed_pallas_ok(probes, self._sig_t.shape[0]),
+            group=group,
+            kernel=self._scan_kernel(),
             narrow_r=self._refine_narrow_r if where is None else 0,
             probes=probes,
             use_rows=where is None,
         )
-
-    def _hamming_geometry(self, local: int) -> tuple[int, bool, int]:
-        """(tile, use_pallas, group) for the shard-local Hamming cores.
-
-        Mirrors `DeviceStore._query_hamming_dev`: the Pallas kernels run
-        per shard under `shard_map` on the local block whenever its row
-        count tiles (group * 128 | local); the refine-table strides are
-        kept in lockstep via `_refine_rows_for`.
-        """
-        group = min(self.group, local)
-        pallas_tile = group * 128  # Pallas out blocks need a >=128 minor dim
-        use_pallas = self._use_pallas() and local % pallas_tile == 0
-        return pallas_tile, use_pallas, group
 
     def _materialize_planes(self) -> jax.Array:
         # Shard-local unpack: each shard builds its block's bitplanes from
@@ -527,17 +472,10 @@ class ShardedDeviceStore(DeviceStore):
         ham_grouped = (
             supports_hamming_grouped(p, local) and local % self.group == 0
         )
-        pallas_tile, use_pallas, group = self._hamming_geometry(local)
-        chunk = pallas_tile if use_pallas else min(self.chunk, local)
+        group = min(self.group, local)
+        chunk = min(self.chunk, local)
         ham_use_rows = ham_grouped and where is None
-        ham_rows = (
-            self._refine_rows_for(group, chunk, use_pallas)
-            if ham_use_rows
-            else self._sig_rows
-        )
-        q_tile = hamming_q_tile(
-            qw.shape[0], chunk, packed=self.hamming_storage == "packed"
-        )
+        ham_rows = self._refine_rows(group) if ham_use_rows else self._sig_rows
         if self.hamming_cascade:
             cb = self.hamming_cascade
             cas_grouped = local % group == 0
@@ -550,9 +488,7 @@ class ShardedDeviceStore(DeviceStore):
                 self.axis,
                 self._planes,
                 self._sig_t,
-                self._refine_rows_for(group, chunk, use_pallas)
-                if cas_use_rows
-                else self._sig_rows,
+                self._refine_rows(group) if cas_use_rows else self._sig_rows,
                 ids_x,
                 self._ranks,
                 tie_x,
@@ -566,8 +502,7 @@ class ShardedDeviceStore(DeviceStore):
                 chunk=chunk,
                 grouped=cas_grouped,
                 group=group,
-                use_pallas=use_pallas,
-                q_tile=q_tile,
+                kernel=self._scan_kernel(self._plane_bits()),
                 narrow_r=self._refine_narrow_r if cas_use_rows else 0,
                 use_rows=cas_use_rows,
             )
@@ -586,8 +521,6 @@ class ShardedDeviceStore(DeviceStore):
                 chunk=chunk,
                 grouped=ham_grouped,
                 group=group,
-                use_pallas=use_pallas,
-                q_tile=q_tile,
                 narrow_r=self._refine_narrow_r if ham_use_rows else 0,
                 use_rows=ham_use_rows,
             )
@@ -610,14 +543,13 @@ class ShardedDeviceStore(DeviceStore):
             chunk=chunk,
             grouped=ham_grouped,
             group=group,
-            use_pallas=use_pallas,
-            q_tile=q_tile,
+            kernel=self._scan_kernel(self._plane_bits()),
             narrow_r=self._refine_narrow_r if ham_use_rows else 0,
             use_rows=ham_use_rows,
         )
 
     def _query_asymmetric_dev(self, qc: jax.Array, k: int, where=None):
-        """Shard-local asymmetric ranking + exact (dots, id) ICI merge."""
+        """Shard-local asymmetric ranking + exact (dots, id) all-gather merge."""
         from lshrs_tpu.ops.asymmetric import asymmetric_shift
 
         self._ensure_ranks()
@@ -627,24 +559,21 @@ class ShardedDeviceStore(DeviceStore):
             raise RuntimeError(
                 'asymmetric ranking requires hamming_storage="planes": the '
                 "query's quantised coordinates rank against int8 bitplanes "
-                "on the MXU (the packed-words variant has no bitplane "
+                "(the packed-words variant has no bitplane "
                 "operand)"
             )
         p = self.num_bands * self.rows_per_band
         local = self._local_rows()
         k_eff = max(1, min(k, local))
-        pallas_tile, use_pallas, group = self._hamming_geometry(local)
+        group = min(self.group, local)
         grouped = local % group == 0
-        chunk = pallas_tile if use_pallas else min(self.chunk, local)
-        q_tile = hamming_q_tile(qc.shape[0], chunk, packed=False)
+        chunk = min(self.chunk, local)
         asym_use_rows = grouped and p <= 2048 and where is None
         return _sharded_asymmetric(
             self.mesh,
             self.axis,
             self._planes,
-            self._refine_rows_for(group, chunk, use_pallas)
-            if asym_use_rows
-            else self._sig_rows,
+            self._refine_rows(group) if asym_use_rows else self._sig_rows,
             ids_x,
             self._ranks,
             tie_x,
@@ -656,8 +585,7 @@ class ShardedDeviceStore(DeviceStore):
             grouped=grouped,
             group=group,
             shift=asymmetric_shift(p, local),
-            use_pallas=use_pallas,
-            q_tile=q_tile,
+            kernel=self._scan_kernel(p),
             narrow_r=self._refine_narrow_r if asym_use_rows else 0,
             use_rows=asym_use_rows,
         )
@@ -715,7 +643,7 @@ class ShardedDeviceStore(DeviceStore):
         """Compiled single-dispatch serving closure over the sharded store.
 
         Same contract as `DeviceStore.snapshot_query_fn` but the captured
-        program runs the shard_map SPMD query (shard-local scan + ICI
+        program runs the shard_map SPMD query (shard-local scan + all-gather
         merge) — the base class's single-device program would misorder
         results across shards (shard-local tie keys are only distinct
         within a shard).
@@ -771,7 +699,7 @@ class ShardedDeviceStore(DeviceStore):
                 raise RuntimeError(
                     'asymmetric ranking requires hamming_storage="planes": '
                     "the query's quantised coordinates rank against int8 "
-                    "bitplanes on the MXU (the packed-words variant has no "
+                    "bitplanes (the packed-words variant has no "
                     "bitplane operand)"
                 )
             snapshot_gen = self._generation
@@ -787,8 +715,8 @@ class ShardedDeviceStore(DeviceStore):
                 supports_hamming_grouped(num_perm, local) and local % group == 0
             )
             packed = self.hamming_storage == "packed"
-            ham_tile, ham_pallas, _ = self._hamming_geometry(local)
-            ham_chunk = ham_tile if ham_pallas else chunk
+            kernel = self._scan_kernel()
+            ham_kernel = self._scan_kernel(self._plane_bits())
             cascade = self.hamming_cascade if mode == "hamming" else 0
             # Cascade coarse keys pack at any capacity (tie-shift in the
             # core), so grouping needs only shard-local divisibility.
@@ -798,9 +726,8 @@ class ShardedDeviceStore(DeviceStore):
                 if cascade
                 else 0
             )
-            # Grouped refine table in the geometry of the served mode
-            # (strided iff the Pallas kernel runs; asymmetric reconstructs
-            # exact dots from the same word-row table — word-row refine).
+            # Grouped refine table of the served mode (asymmetric
+            # reconstructs exact dots from the same word-row table).
             asym_grouped = local % group == 0
             # Prebuilt refine tables bake the UNfiltered tie/id columns:
             # a filtered snapshot drops them (per-slot gather fallback).
@@ -808,34 +735,22 @@ class ShardedDeviceStore(DeviceStore):
                 rows = self._sig_rows
             elif mode == "hamming":
                 rows = (
-                    self._refine_rows_for(group, ham_chunk, ham_pallas)
+                    self._refine_rows(group)
                     if (cas_grouped if cascade else ham_grouped)
                     else self._sig_rows
                 )
             elif mode == "asymmetric":
                 rows = (
-                    self._refine_rows_for(group, ham_chunk, ham_pallas)
+                    self._refine_rows(group)
                     if asym_grouped and num_perm <= 2048
                     else self._sig_rows
                 )
             else:
-                rows = (
-                    self._refine_rows_for(
-                        group, self._pallas_chunk(),
-                        self._use_pallas()
-                        and probed_pallas_ok(probes, self._sig_t.shape[0]),
-                    )
-                    if grouped
-                    else self._sig_rows
-                )
+                rows = self._refine_rows(group) if grouped else self._sig_rows
             asym_shift = asymmetric_shift(num_perm, local, qmax=asym_qmax)
             ids_x, tie_x = self._filtered_ids_tie(where)
             state = (
                 self._sig_t, rows, ids_x, self._ranks, tie_x, self._planes
-            )
-            pallas_chunk = self._pallas_chunk()
-            use_pallas = self._use_pallas() and probed_pallas_ok(
-                probes, self._sig_t.shape[0]
             )
             mode_grouped = {
                 "hamming": cas_grouped if cascade else ham_grouped,
@@ -846,21 +761,15 @@ class ShardedDeviceStore(DeviceStore):
 
         def run_slice(qw, st):
             sig_t, rows_, ids, ranks, tie, planes = st
-            q_tile = min(128, _next_pow2(max(8, qw.shape[0])))
             if mode == "asymmetric":
-                aq_tile = hamming_q_tile(qw.shape[0], ham_chunk, packed=False)
                 return _sharded_asymmetric(
                     mesh, axis, planes, rows_, ids, ranks, tie, qw,
                     num_perm=num_perm, num_bands=num_bands, k=k_eff,
-                    chunk=ham_chunk, grouped=asym_grouped, group=group,
-                    shift=asym_shift, use_pallas=ham_pallas,
-                    q_tile=aq_tile, qmax=asym_qmax, narrow_r=narrow_r,
-                    use_rows=use_rows,
+                    chunk=chunk, grouped=asym_grouped, group=group,
+                    shift=asym_shift, kernel=ham_kernel, qmax=asym_qmax,
+                    narrow_r=narrow_r, use_rows=use_rows,
                 )[1]
             if mode == "hamming":
-                ham_q_tile = hamming_q_tile(
-                    qw.shape[0], ham_chunk, packed=packed
-                )
                 if cascade:
                     qbits = unpack_bitplanes(
                         qw, num_bands=num_bands, rows_per_band=rows_per_band
@@ -869,17 +778,15 @@ class ShardedDeviceStore(DeviceStore):
                         mesh, axis, planes, sig_t, rows_, ids, ranks, tie,
                         qbits, qw,
                         num_perm=num_perm, k=k_eff,
-                        refine_groups=cas_groups, chunk=ham_chunk,
-                        grouped=cas_grouped, group=group,
-                        use_pallas=ham_pallas, q_tile=ham_q_tile,
+                        refine_groups=cas_groups, chunk=chunk,
+                        grouped=cas_grouped, group=group, kernel=ham_kernel,
                         narrow_r=narrow_r, use_rows=use_rows,
                     )[1]
                 if packed:
                     return _sharded_hamming_packed(
                         mesh, axis, sig_t, rows_, ids, ranks, tie, qw,
-                        num_perm=num_perm, k=k_eff, chunk=ham_chunk,
+                        num_perm=num_perm, k=k_eff, chunk=chunk,
                         grouped=ham_grouped, group=group,
-                        use_pallas=ham_pallas, q_tile=ham_q_tile,
                         narrow_r=narrow_r, use_rows=use_rows,
                     )[1]
                 qbits = unpack_bitplanes(
@@ -887,16 +794,14 @@ class ShardedDeviceStore(DeviceStore):
                 )
                 return _sharded_hamming(
                     mesh, axis, planes, sig_t, rows_, ids, ranks, tie, qbits, qw,
-                    num_perm=num_perm, k=k_eff, chunk=ham_chunk,
-                    grouped=ham_grouped, group=group,
-                    use_pallas=ham_pallas, q_tile=ham_q_tile,
+                    num_perm=num_perm, k=k_eff, chunk=chunk,
+                    grouped=ham_grouped, group=group, kernel=ham_kernel,
                     narrow_r=narrow_r, use_rows=use_rows,
                 )[1]
             return _sharded_topk(
                 mesh, axis, sig_t, rows_, ids, ranks, tie, qw,
                 num_bands=num_bands, k=k_eff, chunk=chunk,
-                grouped=grouped, group=group, pallas_chunk=pallas_chunk,
-                q_tile=q_tile, use_pallas=use_pallas,
+                grouped=grouped, group=group, kernel=kernel,
                 narrow_r=narrow_r, probes=probes, use_rows=use_rows,
             )[1]
 
@@ -1074,11 +979,9 @@ def _sharded_append_rows(mesh, axis, arr, new_rows, offset):
 
 @partial(
     jax.jit,
-    static_argnames=("mesh", "axis", "group", "strided_chunk", "narrow_r"),
+    static_argnames=("mesh", "axis", "group", "narrow_r"),
 )
-def _sharded_refine_rows(
-    mesh, axis, sig_rows, tie, ids, *, group, strided_chunk, narrow_r=0
-):
+def _sharded_refine_rows(mesh, axis, sig_rows, tie, ids, *, group, narrow_r=0):
     def local(rows_l, tie_l, ids_l):
         if narrow_r:
             rows_l = pack_words_narrow(
@@ -1094,9 +997,7 @@ def _sharded_refine_rows(
             ],
             axis=1,
         )
-        return build_grouped_refine_rows(
-            ext, group=group, strided_chunk=strided_chunk
-        )
+        return build_grouped_refine_rows(ext, group=group)
 
     return jax.shard_map(
         local,
@@ -1122,21 +1023,19 @@ def _sharded_tie(mesh, axis, ids):
     jax.jit,
     static_argnames=(
         "mesh", "axis", "num_bands", "k", "chunk",
-        "grouped", "group", "pallas_chunk", "q_tile", "use_pallas", "narrow_r",
-        "probes", "use_rows",
+        "grouped", "group", "kernel", "narrow_r", "probes", "use_rows",
     ),
 )
 def _sharded_topk(
     mesh, axis, sig_t, rows, ids, ranks, tie, qwords,
-    *, num_bands, k, chunk, grouped, group, pallas_chunk, q_tile, use_pallas,
+    *, num_bands, k, chunk, grouped, group, kernel=None,
     narrow_r=0, probes=1, use_rows=True,
 ):
     def local(sig_l, rows_l, ids_l, ranks_l, tie_l, qw):
         if grouped:
             counts, out_ids = collision_topk_grouped_core(
                 sig_l, ids_l, tie_l, qw,
-                num_bands=num_bands, k=k, group=group,
-                pallas_chunk=pallas_chunk, q_tile=q_tile, use_pallas=use_pallas,
+                num_bands=num_bands, k=k, group=group, kernel=kernel,
                 sig_rows=rows_l if use_rows else None,
                 narrow_r=narrow_r, probes=probes,
             )
@@ -1145,7 +1044,7 @@ def _sharded_topk(
                 sig_l, ids_l, ranks_l, qw,
                 num_bands=num_bands, k=k, chunk=chunk, probes=probes,
             )
-        # (n_shards, Q, k) on every device after one ICI all-gather.
+        # (n_shards, Q, k) on every device after one all-gather.
         counts_g = jax.lax.all_gather(counts, axis)
         ids_g = jax.lax.all_gather(out_ids, axis)
         q = qw.shape[0]
@@ -1166,17 +1065,15 @@ def _sharded_topk(
     jax.jit,
     static_argnames=(
         "mesh", "axis", "num_perm", "num_bands", "k", "chunk", "grouped",
-        "group", "shift", "use_pallas", "q_tile", "interpret", "qmax",
-        "narrow_r", "use_rows",
+        "group", "shift", "kernel", "qmax", "narrow_r", "use_rows",
     ),
 )
 def _sharded_asymmetric(
     mesh, axis, planes, rows, ids, ranks, tie, qcoords,
     *, num_perm, num_bands, k, chunk, grouped, group, shift,
-    use_pallas=False, q_tile=128, interpret=False, qmax=None, narrow_r=0,
-    use_rows=True,
+    kernel=None, qmax=None, narrow_r=0, use_rows=True,
 ):
-    """Shard-local asymmetric top-k + exact ICI merge.
+    """Shard-local asymmetric top-k + exact all-gather merge.
 
     The asymmetric dot is an absolute key (the same query scores every
     shard), so merging per-shard (dots desc, id asc) prefixes over one
@@ -1203,8 +1100,7 @@ def _sharded_asymmetric(
             dots, out_ids = asymmetric_topk_core(
                 planes_l, ids_l, tie_l, qc,
                 k=k, chunk=chunk, group=group, shift=shift, qmax=qmax,
-                use_pallas=use_pallas, q_tile=q_tile, interpret=interpret,
-                sig_rows=rows_l if use_rows else None,
+                kernel=kernel, sig_rows=rows_l if use_rows else None,
                 narrow_r=narrow_r, num_bands=num_bands,
             )
         else:
@@ -1240,20 +1136,19 @@ def _sharded_asymmetric(
     jax.jit,
     static_argnames=(
         "mesh", "axis", "num_perm", "k", "chunk", "grouped", "group",
-        "use_pallas", "q_tile", "interpret", "narrow_r", "use_rows",
+        "kernel", "narrow_r", "use_rows",
     ),
 )
 def _sharded_hamming(
     mesh, axis, planes, sig_t, rows, ids, ranks, tie, qbits, qwords,
-    *, num_perm, k, chunk, grouped, group,
-    use_pallas=False, q_tile=128, interpret=False, narrow_r=0, use_rows=True,
+    *, num_perm, k, chunk, grouped, group, kernel=None, narrow_r=0,
+    use_rows=True,
 ):
     def local(planes_l, sig_l, rows_l, ids_l, ranks_l, tie_l, qb, qw):
         if grouped:
             hamming, out_ids = hamming_topk_core(
                 planes_l, sig_l, ids_l, tie_l, qb, qw,
-                k=k, chunk=chunk, group=group,
-                use_pallas=use_pallas, q_tile=q_tile, interpret=interpret,
+                k=k, chunk=chunk, group=group, kernel=kernel,
                 sig_rows=rows_l if use_rows else None, narrow_r=narrow_r,
             )
         else:
@@ -1286,16 +1181,16 @@ def _sharded_hamming(
     jax.jit,
     static_argnames=(
         "mesh", "axis", "num_perm", "k", "refine_groups", "chunk", "grouped",
-        "group", "use_pallas", "q_tile", "interpret", "narrow_r", "use_rows",
+        "group", "kernel", "narrow_r", "use_rows",
     ),
 )
 def _sharded_hamming_cascade(
     mesh, axis, planes_prefix, sig_t, rows, ids, ranks, tie, qbits_prefix,
     qwords, *, num_perm, k, refine_groups, chunk, grouped, group,
-    use_pallas=False, q_tile=128, interpret=False, narrow_r=0, use_rows=True,
+    kernel=None, narrow_r=0, use_rows=True,
 ):
     """SPMD refinement cascade: shard-local coarse prefix scan +
-    shard-local full-width refine, then the exact-key ICI merge.
+    shard-local full-width refine, then the exact-key all-gather merge.
 
     Each shard runs `hamming_topk_cascade_core` on its local block —
     coarse selection over its ``planes_prefix`` columns, full
@@ -1313,8 +1208,7 @@ def _sharded_hamming_cascade(
             hamming, out_ids = hamming_topk_cascade_core(
                 planes_l, sig_l, ids_l, tie_l, qb, qw,
                 num_perm=num_perm, k=k, refine_groups=refine_groups,
-                chunk=chunk, group=group,
-                use_pallas=use_pallas, q_tile=q_tile, interpret=interpret,
+                chunk=chunk, group=group, kernel=kernel,
                 sig_rows=rows_l if use_rows else None, narrow_r=narrow_r,
             )
         else:
@@ -1346,20 +1240,18 @@ def _sharded_hamming_cascade(
     jax.jit,
     static_argnames=(
         "mesh", "axis", "num_perm", "k", "chunk", "grouped", "group",
-        "use_pallas", "q_tile", "interpret", "narrow_r", "use_rows",
+        "narrow_r", "use_rows",
     ),
 )
 def _sharded_hamming_packed(
     mesh, axis, sig_t, rows, ids, ranks, tie, qwords,
-    *, num_perm, k, chunk, grouped, group,
-    use_pallas=False, q_tile=128, interpret=False, narrow_r=0, use_rows=True,
+    *, num_perm, k, chunk, grouped, group, narrow_r=0, use_rows=True,
 ):
     def local(sig_l, rows_l, ids_l, ranks_l, tie_l, qw):
         if grouped:
             hamming, out_ids = hamming_topk_packed_core(
                 sig_l, ids_l, tie_l, qw,
                 num_perm=num_perm, k=k, chunk=chunk, group=group,
-                use_pallas=use_pallas, q_tile=q_tile, interpret=interpret,
                 sig_rows=rows_l if use_rows else None, narrow_r=narrow_r,
             )
         else:
@@ -1390,21 +1282,20 @@ def _sharded_hamming_packed(
     jax.jit,
     static_argnames=(
         "mesh", "axis", "num_bands", "max_out", "max_candidates",
-        "group", "pallas_chunk", "q_tile", "use_pallas", "interpret",
-        "narrow_r", "probes", "use_rows",
+        "group", "kernel", "narrow_r", "probes", "use_rows",
     ),
 )
 def _sharded_topp_gather(
     mesh, axis, payload, pnorm, ids, tie, sig_t, rows, qwords, qvecs,
-    *, num_bands, max_out, max_candidates, group, pallas_chunk, q_tile,
-    use_pallas, interpret=False, narrow_r=0, probes=1, use_rows=True,
+    *, num_bands, max_out, max_candidates, group, kernel=None,
+    narrow_r=0, probes=1, use_rows=True,
 ):
     """SPMD candidate-gather rerank: shard-local gather rerank + cosine merge.
 
     Each shard runs `rerank_topp_gather_core` on its local block (the
     shard-local tie keys are exactly the per-block keys the core expects;
     the per-query candidate budget applies PER SHARD), then the
-    ``(cosine, id)`` prefix lists merge over one ICI ``all_gather`` —
+    ``(cosine, id)`` prefix lists merge over one ``all_gather`` —
     exact, because cosine is an absolute key: the global top-``max_out``
     by (cosine desc, id asc) is contained in the union of per-shard
     top-``max_out`` lists. ``n`` is the psum of shard-local candidate
@@ -1418,9 +1309,7 @@ def _sharded_topp_gather(
         out_ids, sims, n_l, exact_l = rerank_topp_gather_core(
             payload_l, pnorm_l, ids_l, tie_l, sig_l, qw, qv,
             num_bands=num_bands, max_out=max_out,
-            max_candidates=max_candidates, group=group,
-            pallas_chunk=pallas_chunk, q_tile=q_tile,
-            use_pallas=use_pallas, interpret=interpret,
+            max_candidates=max_candidates, group=group, kernel=kernel,
             sig_rows=rows_l if use_rows else None,
             narrow_r=narrow_r, probes=probes,
         )

@@ -9,7 +9,7 @@ The orchestrator talks to storage at two levels:
    Any backend implementing this works with the orchestrator's host query
    path (per-band bucket lookups + dict collision counting).
 
-2. **Signature-batch level** (TPU-native): whole ``(n, num_bands * W)``
+2. **Signature-batch level** (device path): whole ``(n, num_bands * W)``
    uint32 word batches with integer ids. Backends that set
    ``supports_signature_batches = True`` (the device store) receive
    ingestion in this form and serve fused device-side queries; the

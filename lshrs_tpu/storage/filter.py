@@ -7,7 +7,7 @@ candidate set; callers must post-filter, which breaks top-k semantics
 need pre-filtering: multi-tenant namespaces, soft deletes, access
 control, time-windowed corpora.
 
-TPU-native formulation: every query core in this package already
+Device formulation: every query core in this package already
 treats a slot as dead when its id or tie key is negative (tombstones
 use exactly this encoding), and both columns are *runtime operands* of
 the compiled kernels. A filter is therefore a per-slot aliveness

@@ -6,7 +6,7 @@ Implements the same bucket contract over redis-py as the reference backend
 SCAN-based removal and clear, and a pooled connection with timeouts.
 
 This backend exists so reference users can switch frameworks without
-changing their durability story; the TPU-native engine is
+changing their durability story; the device engine is
 `lshrs_tpu.storage.device.DeviceStore`. redis-py is an optional dependency,
 imported on first construction.
 """

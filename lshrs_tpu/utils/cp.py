@@ -192,8 +192,7 @@ def get_optimal_cp_config(
     process (seeds the shared per-``cp_dims`` MC curves) and ~0.1 ms
     thereafter — the curves are keyed by ``cp_dims``, not ``num_perm``,
     so even a cold call at a new ``num_perm`` reuses them; this cache
-    makes repeat constructions free outright. Negligible next to the
-    ITQ fit (25–27 s, PERFORMANCE.md).
+    makes repeat constructions free outright.
     """
     best = find_optimal_cp_br(num_perm, threshold, dim)
     if best is not None:

@@ -5,7 +5,7 @@ These NumPy functions implement the rerank contract of the reference
 a user callback are ranked by cosine against the query, descending, with
 ``(index, score)`` tuples returned.
 
-The TPU-native rerank over an HBM-resident payload matrix lives in
+The device rerank over a device-resident payload matrix lives in
 `lshrs_tpu.ops.rerank`; this module is used when vectors come from the
 user's primary datastore (``vector_fetch_fn``), where the data is already
 on host and tiny (a candidate set), so NumPy is the right tool.

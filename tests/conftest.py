@@ -1,8 +1,10 @@
 """Shared fixtures: hermetic backends, small-index factories, fake devices.
 
 Tests run on the JAX CPU backend with 8 virtual devices so sharding tests
-exercise real `jax.sharding` machinery without TPU hardware; all storage is
-in-process (MemoryStorage bucket dict or the device signature store on CPU).
+exercise real `jax.sharding` machinery without accelerator hardware; all
+storage is in-process (MemoryStorage bucket dict or the device signature
+store on CPU). Tests marked ``gpu`` skip here and run on the card with
+``LSHRS_TEST_PLATFORM=cuda python -m pytest -m gpu tests/``.
 """
 
 from __future__ import annotations
@@ -10,10 +12,9 @@ from __future__ import annotations
 import os
 
 # Must be set before jax initialises its backends. Tests are hermetic and
-# always run on CPU with 8 virtual devices (override with
-# LSHRS_TPU_TEST_PLATFORM); jax.config is used as well because some TPU
-# platform plugins ignore the JAX_PLATFORMS environment variable.
-_platform = os.environ.get("LSHRS_TPU_TEST_PLATFORM", "cpu")
+# run on CPU with 8 virtual devices unless LSHRS_TEST_PLATFORM names
+# another platform; jax.config is set as well as JAX_PLATFORMS.
+_platform = os.environ.get("LSHRS_TEST_PLATFORM", "cpu")
 os.environ["JAX_PLATFORMS"] = _platform
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:

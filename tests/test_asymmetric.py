@@ -128,7 +128,7 @@ def test_asymmetric_after_mutations(hasher, rng):
 
 
 def test_asymmetric_pallas_interpret_matches_xla(hasher, rng):
-    """Pallas gmax path (interpret) == XLA scan path in the exact regime."""
+    """GPU group-max kernel (interpret) == XLA scan path in the exact regime."""
     import jax.numpy as jnp
 
     from lshrs_tpu.ops.asymmetric import asymmetric_topk
@@ -154,11 +154,10 @@ def test_asymmetric_pallas_interpret_matches_xla(hasher, rng):
     assert asymmetric_shift(P, c) == 0
     kw = dict(k=12, chunk=128, group=32, shift=0)
     d1, i1 = asymmetric_topk(
-        planes, jnp.asarray(ids), tie, jnp.asarray(qi8), use_pallas=False, **kw
+        planes, jnp.asarray(ids), tie, jnp.asarray(qi8), **kw
     )
     d2, i2 = asymmetric_topk(
-        planes, jnp.asarray(ids), tie, jnp.asarray(qi8),
-        use_pallas=True, interpret=True, q_tile=8, **kw,
+        planes, jnp.asarray(ids), tie, jnp.asarray(qi8), kernel="interpret", **kw,
     )
     np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))

@@ -257,10 +257,10 @@ def test_snapshot_query_fn_matches_query_topk(rng):
 
 
 def test_grouped_refine_table_layouts(rng):
-    """The grouped refine table must be exact under both layouts: row g
-    of the contiguous layout holds slots [g*group, (g+1)*group); row
-    (ci, j) of the strided layout holds slots ci*chunk + j + i*ngc —
-    matching the Pallas kernels' group/slot mapping."""
+    """Row g of the grouped refine table holds slots [g*group, (g+1)*group)
+    word-major — the contiguous groups every group-max formulation (XLA
+    and the GPU kernel) produces — and the gather returns them as
+    (words, tie, ids) blocks."""
     import jax.numpy as jnp
 
     from lshrs_tpu.ops.scan import (
@@ -268,35 +268,29 @@ def test_grouped_refine_table_layouts(rng):
         gather_refine_group_rows,
     )
 
-    c, nc, group, chunk = 512, 6, 8, 64
+    c, nc, group = 512, 6, 8
     bw = nc - 2
     ext = jnp.asarray(
         rng.integers(0, 2**31, (c, nc), dtype=np.int64).astype(np.uint32)
     )
 
-    contig = build_grouped_refine_rows(ext, group=group, strided_chunk=None)
+    contig = build_grouped_refine_rows(ext, group=group)
     assert contig.shape == (c // group, nc * group)
-    g = 7
+    g = 29
+    slots = g * group + np.arange(group)
     np.testing.assert_array_equal(
-        np.asarray(contig[g]).reshape(nc, group),
-        np.asarray(ext[g * group : (g + 1) * group]).T,
-    )
-
-    strided = build_grouped_refine_rows(ext, group=group, strided_chunk=chunk)
-    ngc = chunk // group
-    ci, j = 3, 5
-    g = ci * ngc + j
-    slots = ci * chunk + j + np.arange(group) * ngc
-    np.testing.assert_array_equal(
-        np.asarray(strided[g]).reshape(nc, group), np.asarray(ext)[slots].T
+        np.asarray(contig[g]).reshape(nc, group), np.asarray(ext)[slots].T
     )
 
     # gather returns word-major (words, tie, ids) blocks per group
     tg = jnp.asarray([[g, 0], [1, g]], dtype=jnp.int32)
-    words, tie, ids = gather_refine_group_rows(strided, tg, bw=bw, group=group)
+    words, tie, ids = gather_refine_group_rows(contig, tg, bw=bw, group=group)
     assert words.shape == (2, 2, bw, group)
     np.testing.assert_array_equal(
         np.asarray(words[0, 0]), np.asarray(ext)[slots][:, :bw].T
+    )
+    np.testing.assert_array_equal(
+        np.asarray(tie[1, 1]), np.asarray(ext)[slots][:, bw].astype(np.int32)
     )
     np.testing.assert_array_equal(
         np.asarray(ids[0, 0]),
@@ -340,10 +334,9 @@ def test_grouped_refine_matches_elementwise_fallback(rng):
         ],
         axis=1,
     )
-    rows_g = build_grouped_refine_rows(ext, group=group, strided_chunk=None)
+    rows_g = build_grouped_refine_rows(ext, group=group)
 
-    kw = dict(num_bands=4, k=11, group=group, pallas_chunk=64, q_tile=8,
-              use_pallas=False)
+    kw = dict(num_bands=4, k=11, group=group)
     c1, i1 = collision_topk_grouped_core(sig_t, ids, tie, qw, **kw)
     c2, i2 = collision_topk_grouped_core(
         sig_t, ids, tie, qw, sig_rows=rows_g, **kw
@@ -353,7 +346,7 @@ def test_grouped_refine_matches_elementwise_fallback(rng):
 
     planes = unpack_bitplanes(jnp.asarray(sig_rows), num_bands=4, rows_per_band=8)
     qbits = unpack_bitplanes(qw, num_bands=4, rows_per_band=8)
-    hkw = dict(k=7, chunk=64, group=group, use_pallas=False)
+    hkw = dict(k=7, chunk=64, group=group)
     h1, hi1 = hamming_topk_core(planes, sig_t, ids, tie, qbits, qw, **hkw)
     h2, hi2 = hamming_topk_core(
         planes, sig_t, ids, tie, qbits, qw, sig_rows=rows_g, **hkw
@@ -383,11 +376,11 @@ def test_refine_table_cache_is_bounded(hasher, rng):
     store = make_store()
     store.add_signature_batch(np.arange(64), words)
     # Request more geometries than the cache bound; LRU must evict.
-    for g, ch in [(8, None), (16, None), (8, 64), (16, 64), (8, None)]:
-        store._refine_rows(min(g, store._capacity), ch)
+    for g in [8, 16, 32, 4, 8]:
+        store._refine_rows(min(g, store._capacity))
         assert len(store._rows_ext) <= store._MAX_REFINE_GEOMETRIES
     # Most recently used geometry is resident.
-    assert (8, None) in store._rows_ext
+    assert 8 in store._rows_ext
 
 
 def test_query_nnz_matches_full_counts(hasher, rng):

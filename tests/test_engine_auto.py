@@ -22,7 +22,7 @@ def make(engine="auto", **kw):
 def test_auto_engine_enables_mxu_hamming(rng):
     lsh = make()
     st = lsh._storage
-    # planes: the MXU formulation (169k vs ~51k QPS at 1M for packed);
+    # planes: the int8 bitplane (matmul) formulation, not packed;
     # costs num_perm bytes/slot — but only once Hamming ranking actually
     # engages (bitplanes materialize lazily on first Hamming use)
     assert st.enable_hamming and st.hamming_storage == "planes"

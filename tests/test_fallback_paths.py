@@ -71,7 +71,7 @@ def test_grouped_and_chunked_agree(rng):
     )
     c2, i2 = collision_topk_grouped(
         jnp.asarray(sig_t), jnp.asarray(ids), tie, jnp.asarray(qw),
-        num_bands=B, k=20, group=32, pallas_chunk=256, q_tile=8, use_pallas=False,
+        num_bands=B, k=20, group=32,
     )
     np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))

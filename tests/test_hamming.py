@@ -1,4 +1,4 @@
-"""Hamming-mode (MXU) ranking: oracle exactness and recall dominance."""
+"""Hamming-mode (int8 matmul) ranking: oracle exactness and recall dominance."""
 
 from __future__ import annotations
 
@@ -156,7 +156,7 @@ def test_sharded_hamming(rng):
 
 
 def test_hamming_pallas_interpret_matches_xla(hasher, rng):
-    """Fused pallas gmax path (interpret mode) == XLA scan path."""
+    """The GPU group-max kernel (Triton route, interpret mode) == XLA path."""
     import jax.numpy as jnp
 
     from lshrs_tpu.ops.hamming import hamming_topk, unpack_bitplanes
@@ -179,11 +179,11 @@ def test_hamming_pallas_interpret_matches_xla(hasher, rng):
     kw = dict(k=12, chunk=128, group=32)
     h1, i1 = hamming_topk(
         planes, jnp.asarray(sig_t), jnp.asarray(ids), tie, qbits, jnp.asarray(qw),
-        use_pallas=False, **kw,
+        **kw,
     )
     h2, i2 = hamming_topk(
         planes, jnp.asarray(sig_t), jnp.asarray(ids), tie, qbits, jnp.asarray(qw),
-        use_pallas=True, interpret=True, q_tile=8, **kw,
+        kernel="interpret", **kw,
     )
     np.testing.assert_array_equal(np.asarray(h1), np.asarray(h2))
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))

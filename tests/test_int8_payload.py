@@ -2,8 +2,8 @@
 
 Per-row symmetric quantization ``rows = round(127 * x / max|x|)`` stores
 the payload at a QUARTER of f32 (dim + 8 bytes/slot including norm and
-reconstruction scale) — the precision tier that fits 768-dim payloads
-next to the index at the 100M/v5e-8 sizing (PERFORMANCE.md). The
+reconstruction scale) — the precision tier for 768-dim payloads next to
+a large index. The
 quantization scale cancels out of the cosine (``pnorm`` is the integer
 rows' norm), so rerank ranks by the cosine of the quantized direction.
 """

@@ -99,8 +99,7 @@ def test_learned_beats_gaussian_recall_on_structured_data(rng):
     anisotropic spectrum, learned codes rank neighbors better than
     random hyperplanes at equal bits. (The converse regime — bits well
     beyond the data's intrinsic rank — favors random hyperplanes, whose
-    every bit mixes in some signal; measured and documented in
-    PERFORMANCE.md.)"""
+    every bit mixes in some signal.)"""
     dim, n, nq, bits = 64, 3000, 64, 16
     scales = (1.0 / np.sqrt(1.0 + np.arange(dim))).astype(np.float32)
     base = rng.standard_normal((n, dim)).astype(np.float32) * scales

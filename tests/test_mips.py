@@ -5,7 +5,7 @@ coordinate ``sqrt(max_norm^2 - |x|^2)`` (constant augmented norm), queries
 a literal 0, so augmented cosine equals ``(q.x) / (|q| * max_norm)`` —
 inner-product ORDER under every cosine stage, and returned scores rescale
 back to exact inner products. The reference is cosine-only
-(`/root/reference/lshrs/utils/similarity.py`); this is a TPU-native
+(`/root/reference/lshrs/utils/similarity.py`); this is a device
 capability extension.
 """
 

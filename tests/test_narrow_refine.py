@@ -90,7 +90,7 @@ def _rows(words, tie, ids, *, group, narrow_r_val, num_bands, r):
         ],
         axis=1,
     )
-    return build_grouped_refine_rows(ext, group=group, strided_chunk=None)
+    return build_grouped_refine_rows(ext, group=group)
 
 
 @pytest.mark.parametrize("num_bands,r", [(16, 16), (8, 8), (5, 8)])
@@ -98,8 +98,7 @@ def test_collision_grouped_narrow_matches_wide(num_bands, r):
     c, q, k, group = 512, 64, 7, 8
     words, ids, tie, qw, _ = _build(num_bands, r, c, q)
     common = dict(
-        num_bands=num_bands, k=k, group=group, pallas_chunk=group * 128,
-        q_tile=128, use_pallas=False,
+        num_bands=num_bands, k=k, group=group,
     )
     wide = collision_topk_grouped_core(
         words.T, ids, tie, qw,
@@ -123,7 +122,7 @@ def test_hamming_packed_narrow_matches_wide():
     c, q, k, group = 512, 32, 9, 8
     words, ids, tie, qw, _ = _build(num_bands, r, c, q)
     common = dict(
-        num_perm=num_bands * r, k=k, chunk=256, group=group, use_pallas=False,
+        num_perm=num_bands * r, k=k, chunk=256, group=group,
     )
     wide = hamming_topk_packed_core(
         words.T, ids, tie, qw,
@@ -151,7 +150,6 @@ def test_rerank_gather_narrow_matches_wide():
     qv = payload[:q]
     common = dict(
         num_bands=num_bands, max_out=5, max_candidates=16, group=group,
-        pallas_chunk=group * 128, q_tile=128, use_pallas=False,
     )
     wide = rerank_topp_gather_core(
         payload, pnorm, ids, tie, words.T, qw, qv,

@@ -1,4 +1,5 @@
-"""Pallas group-max kernel: interpret-mode equivalence with the jnp path."""
+"""Group-max kernels (Triton route): interpret-mode equivalence with the
+plain XLA formulation, tiling, padding and the choice of route."""
 
 from __future__ import annotations
 
@@ -8,7 +9,11 @@ import pytest
 import jax.numpy as jnp
 
 from lshrs_tpu.hash.hasher import LSHHasher
-from lshrs_tpu.ops.pallas_scan import group_max_keys, key_scale, supports_fast_path
+from lshrs_tpu.ops.pallas_scan import (
+    collision_group_max_keys,
+    key_scale,
+    supports_fast_path,
+)
 from lshrs_tpu.ops.scan import (
     band_counts_t,
     collision_topk_grouped,
@@ -30,33 +35,19 @@ def test_group_max_keys_matches_jnp(num_bands, rows, rng):
     tie = np.asarray(compute_global_tie(jnp.asarray(ids)))
     qwords = h.hash_batch_words_host(rng.standard_normal((q, dim)).astype(np.float32))
 
-    scale = key_scale(c)
-    got = np.asarray(
-        group_max_keys(
-            jnp.asarray(sig_t),
-            jnp.asarray(tie),
-            jnp.asarray(qwords),
-            num_bands=num_bands,
-            words=h.words_per_band,
-            group=64,
-            chunk=256,
-            q_tile=8,
-            scale=scale,
-            interpret=True,  # CPU-runnable
-        )
-    )
+    scale, group = key_scale(c), 64
+    kw = dict(num_bands=num_bands, words=h.words_per_band, group=group, scale=scale)
+    args = (jnp.asarray(sig_t), jnp.asarray(tie), jnp.asarray(qwords))
+    got = np.asarray(collision_group_max_keys(*args, kernel="interpret", **kw))
+    want = np.asarray(collision_group_max_keys(*args, **kw))  # XLA
+    np.testing.assert_array_equal(got, want)
 
     counts = np.asarray(band_counts_t(jnp.asarray(sig_t), jnp.asarray(qwords), num_bands))
-    # kernel key = count*scale + bias, bias = tie (alive) / -B*scale (dead)
+    # key = count*scale + bias, bias = tie (alive) / -B*scale (dead); group
+    # g holds the contiguous slots [g*group, (g+1)*group).
     bias = np.where(tie >= 0, tie, -num_bands * scale)
     key = counts * scale + bias[None, :]
-    # Pallas grouping is strided within each chunk: chunk ci, lane j holds
-    # slots ci*chunk + j + i*ngc (ngc = chunk // group).
-    chunk, group = 256, 64
-    ngc = chunk // group
-    expected = (
-        key.reshape(q, c // chunk, group, ngc).max(axis=2).reshape(q, c // group)
-    )
+    expected = key.reshape(q, c // group, group).max(axis=2)
     np.testing.assert_array_equal(got, expected)
 
 
@@ -74,14 +65,13 @@ def test_grouped_topk_pallas_interpret_end_to_end(rng):
     tie = compute_global_tie(jnp.asarray(ids))
     qwords = h.hash_batch_words_host(rng.standard_normal((5, dim)).astype(np.float32))
 
-    kw = dict(num_bands=num_bands, k=12, group=64, pallas_chunk=256, q_tile=8)
+    kw = dict(num_bands=num_bands, k=12, group=64)
     c_pl, i_pl = collision_topk_grouped(
         jnp.asarray(sig_t), jnp.asarray(ids), tie, jnp.asarray(qwords),
-        use_pallas=True, interpret=True, **kw,
+        kernel="interpret", **kw,
     )
     c_jnp, i_jnp = collision_topk_grouped(
-        jnp.asarray(sig_t), jnp.asarray(ids), tie, jnp.asarray(qwords),
-        use_pallas=False, **kw,
+        jnp.asarray(sig_t), jnp.asarray(ids), tie, jnp.asarray(qwords), **kw,
     )
     np.testing.assert_array_equal(np.asarray(c_pl), np.asarray(c_jnp))
     np.testing.assert_array_equal(np.asarray(i_pl), np.asarray(i_jnp))
@@ -140,8 +130,7 @@ def test_hierarchical_group_selection_exact(rng):
     )
     c2, i2 = collision_topk_grouped_core(
         sig_j, ids_j, tie, jnp.asarray(qw),
-        num_bands=B, k=12, group=group, pallas_chunk=4096, q_tile=16,
-        use_pallas=False,
+        num_bands=B, k=12, group=group,
     )
     np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))

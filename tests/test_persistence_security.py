@@ -95,7 +95,7 @@ def test_pickle_keeps_unredacted_password():
 
 def test_save_load_preserves_capabilities(tmp_path, rng):
     """enable_hamming + engine knobs round-trip (ref main.py:880-976 keeps
-    the full constructor config; the TPU extensions must too)."""
+    the full constructor config; the device extensions must too)."""
     lsh = LSHRS(
         dim=16, num_perm=8, num_bands=2, rows_per_band=4,
         backend="device", chunk_size=128, initial_capacity=128,

@@ -86,7 +86,7 @@ def test_gather_core_exact_flag(populated, hasher, rng):
         store._payload, store._pnorm, store._ids, store._tie, store._sig_t,
         qw, jnp.asarray(X[:4]),
         num_bands=B, max_out=16, max_candidates=512,
-        group=64, pallas_chunk=4096, q_tile=8, use_pallas=False,
+        group=64,
     )
     assert bool(np.asarray(exact).all())
     # a tiny budget on a self-query with near-dup cluster -> not exact
@@ -94,30 +94,26 @@ def test_gather_core_exact_flag(populated, hasher, rng):
         store._payload, store._pnorm, store._ids, store._tie, store._sig_t,
         qw, jnp.asarray(X[:4]),
         num_bands=B, max_out=4, max_candidates=1,
-        group=64, pallas_chunk=4096, q_tile=8, use_pallas=False,
+        group=64,
     )
     assert not bool(np.asarray(exact_small).all())
 
 
 def test_gather_pallas_interpret_parity(populated, hasher):
-    """The strided (Pallas) formulation must agree bit-for-bit with the
-    contiguous XLA formulation (interpret mode runs the kernel on CPU)."""
+    """The GPU collision kernel (interpret mode) with the grouped refine
+    table must agree bit-for-bit with the plain XLA formulation."""
     store, X = populated
     store._ensure_ranks()
     qw = jnp.asarray(hasher.hash_batch_words_host(X[:8]), dtype=jnp.uint32)
-    kw = dict(
-        num_bands=B, max_out=32, max_candidates=256, group=64, q_tile=8,
-    )
+    kw = dict(num_bands=B, max_out=32, max_candidates=256, group=64)
     ids_x, sims_x, n_x, ex_x = rerank_topp_gather_core(
         store._payload, store._pnorm, store._ids, store._tie, store._sig_t,
-        qw, jnp.asarray(X[:8]),
-        pallas_chunk=4096, use_pallas=False, **kw,
+        qw, jnp.asarray(X[:8]), **kw,
     )
     ids_p, sims_p, n_p, ex_p = rerank_topp_gather_core(
         store._payload, store._pnorm, store._ids, store._tie, store._sig_t,
-        qw, jnp.asarray(X[:8]),
-        pallas_chunk=2048, use_pallas=True, interpret=True,
-        sig_rows=store._refine_rows_for(64, 2048, True),
+        qw, jnp.asarray(X[:8]), kernel="interpret",
+        sig_rows=store._refine_rows(64),
         narrow_r=store._refine_narrow_r, **kw,
     )
     ids_x, ids_p = np.asarray(ids_x), np.asarray(ids_p)
@@ -254,14 +250,14 @@ def test_gather_multiword_bands(rng):
 
 
 def test_auto_prefers_gather_when_full_cannot_fit(populated):
-    """When the full engine's (Q, C) temporaries would exceed the HBM
-    budget (observed OOM at 4M x 1024q on v5e), auto must take gather
-    even if the expected candidate load would truncate."""
+    """When the full engine's (Q, C) temporaries would exceed the device
+    memory budget, auto must take gather even if the expected candidate
+    load would truncate."""
     store, X = populated
-    store._FULL_RERANK_TEMP_BUDGET = 1  # everything is "too big"
+    store._full_rerank_temp_budget = lambda: 1  # everything is "too big"
     assert store._resolve_rerank_engine("auto", 4)[0] == "gather"
     # without gather support, full remains the only (doomed) option
     bare = DeviceStore(num_bands=B, rows_per_band=R, chunk_size=128,
                        initial_capacity=128)
-    bare._FULL_RERANK_TEMP_BUDGET = 1
+    bare._full_rerank_temp_budget = lambda: 1
     assert bare._resolve_rerank_engine("auto", 4)[0] == "full"

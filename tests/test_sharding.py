@@ -1,7 +1,8 @@
 """Sharded store: exact agreement with the single-device oracle on a mesh.
 
 Runs on 8 virtual CPU devices (see conftest XLA flags) — the same
-`jax.sharding` / `shard_map` code paths execute on a real TPU pod slice.
+`jax.sharding` / `shard_map` code paths run on the GPUs of one host
+(`chip_smoke.py --four-cards` checks them on four cards).
 """
 
 from __future__ import annotations
@@ -294,9 +295,9 @@ def test_sharded_nnz_matches_unsharded(mesh, hasher, rng):
 
 
 def test_sharded_hamming_pallas_interpret_parity(mesh, hasher, rng):
-    """The Pallas Hamming kernels under shard_map (interpret mode on the
-    virtual mesh) must match the single-device oracle bit-for-bit, for
-    both the packed-words and bitplane storage formulations."""
+    """The GPU Hamming kernel under shard_map (interpret mode on the
+    virtual mesh) must match the single-device oracle bit-for-bit, and so
+    must the packed-words storage (plain XLA on every platform)."""
     from lshrs_tpu.parallel.sharded import (
         _sharded_hamming,
         _sharded_hamming_packed,
@@ -309,7 +310,7 @@ def test_sharded_hamming_pallas_interpret_parity(mesh, hasher, rng):
     words = hasher.hash_batch_words_host(X)
     ids = rng.permutation(50_000)[:n]
 
-    # group=8 -> pallas tile = 1024 rows/shard -> capacity 8192 over 8 shards
+    # capacity 8192 over 8 shards -> 1024 rows/shard
     single = DeviceStore(
         num_bands=B, rows_per_band=R, chunk_size=1024,
         initial_capacity=8192, group_size=8,
@@ -330,8 +331,8 @@ def test_sharded_hamming_pallas_interpret_parity(mesh, hasher, rng):
     sharded._ensure_planes()  # bitplanes are lazy; the direct call needs them
     local = sharded._local_rows()
     assert local == 1024
-    tile, group = 8 * 128, 8
-    rows = sharded._refine_rows_for(group, tile, True)
+    tile, group = 1024, 8
+    rows = sharded._refine_rows(group)
     import jax.numpy as jnp
 
     qwj = jnp.asarray(qw, dtype=jnp.uint32)
@@ -339,7 +340,6 @@ def test_sharded_hamming_pallas_interpret_parity(mesh, hasher, rng):
         sharded.mesh, sharded.axis, sharded._sig_t, rows, sharded._ids,
         sharded._ranks, sharded._tie, qwj,
         num_perm=B * R, k=15, chunk=tile, grouped=True, group=group,
-        use_pallas=True, q_tile=8, interpret=True,
         narrow_r=sharded._refine_narrow_r,
     )
     np.testing.assert_array_equal(np.asarray(i_p), ref_i)
@@ -350,7 +350,7 @@ def test_sharded_hamming_pallas_interpret_parity(mesh, hasher, rng):
         sharded.mesh, sharded.axis, sharded._planes, sharded._sig_t, rows,
         sharded._ids, sharded._ranks, sharded._tie, qbits, qwj,
         num_perm=B * R, k=15, chunk=tile, grouped=True, group=group,
-        use_pallas=True, q_tile=8, interpret=True,
+        kernel="interpret",
         narrow_r=sharded._refine_narrow_r,
     )
     np.testing.assert_array_equal(np.asarray(i_b), ref_i)
